@@ -1,0 +1,84 @@
+"""The port imports nothing that the machine with the card lacks: no JAX, no
+part of the JAX package, none of its serialisation or audio-file modules,
+and no `triton` at import time. Also: entry points default to the card and
+refuse to run quietly on the CPU, and `chip_smoke.py` gives no result
+without a card or without the package beside it."""
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "vampnet_tpu",
+           "msgpack", "yaml", "soundfile", "triton")
+
+_IMPORT_ALL = f"""
+import importlib, importlib.abc, pkgutil, sys
+import numpy, scipy.signal, torch  # the allowed dependencies load first
+BLOCKED = {BLOCKED!r}
+for name in list(sys.modules):  # anything they pulled in is forgotten
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("refused import of " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import vampnet_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(vampnet_tpu_torch.__path__, "vampnet_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax_or_missing_packages():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was walked
+
+
+def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):
+    from vampnet_tpu_torch.codec import LAC, CodecConfig
+    from vampnet_tpu_torch.interface import Interface
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = LMConfig(n_heads=2, n_layers=1, n_codebooks=2, latent_dim=4, embedding_dim=32,
+                    vocab_size=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VampNetLM(tiny)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LAC(CodecConfig(n_codebooks=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Interface.from_modules(CodecConfig(), {}, tiny, {})
+
+
+def _run_chip_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_chip_smoke_gives_no_result_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: chip_smoke.py would run for real")
+    out = _run_chip_smoke(REPO)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_gives_no_result(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_chip_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

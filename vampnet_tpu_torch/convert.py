@@ -1,0 +1,57 @@
+"""Weight bridge: the JAX package's flax param trees, given as nested dicts
+of numpy arrays, to the port's state dicts.
+
+The port names its parameters after the flax tree (`layers_0`, `w_qs`,
+`quantizers_3`, ...), so a flax path "a/b/kernel" becomes the key "a.b.weight"
+and nothing is reordered:
+  * Dense kernels are stored (in, out) by flax and (out, in) by
+    `torch.nn.Linear`: they are transposed. The classifier keeps its
+    codebook-major column order.
+  * The codec's weight-norm pairs carry over as they are: flax already
+    stores v as (out, in, k) for a conv and (in, out, k) for a transposed
+    conv, torch's layouts (the JAX layers transpose to WIO at call time).
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}.{key}" if prefix else str(key)
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, path))
+        else:
+            out[path] = np.asarray(val)
+    return out
+
+
+def _tensor(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def lm_state_dict_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """A `VampNetLM` param tree -> the port's `VampNetLM` state dict."""
+    if cfg.lora_r != 0:
+        raise NotImplementedError("LoRA adapters (r > 0) are not ported yet")
+    sd = {}
+    for path, x in _flatten(params_np).items():
+        if path.endswith(".kernel"):
+            sd[path[: -len("kernel")] + "weight"] = _tensor(x.T)
+        else:
+            sd[path] = _tensor(x)
+    return sd
+
+
+def codec_state_dict_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """An `LAC` param tree -> the port's `LAC` state dict (names only)."""
+    sd = {path: _tensor(x) for path, x in _flatten(params_np).items()}
+    n_quantizers = sum(1 for k in sd if k.endswith(".codebook"))
+    if n_quantizers != cfg.n_codebooks:
+        raise ValueError(f"param tree has {n_quantizers} quantizers, "
+                         f"config says {cfg.n_codebooks}")
+    return sd

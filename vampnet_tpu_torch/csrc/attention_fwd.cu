@@ -1,0 +1,263 @@
+// Attention forward with a head-shared additive bias, for Hopper (sm_90a).
+//
+// Port of the Pallas inference kernel `_attn_kernel_dt`
+// (vampnet_tpu/ops/flash_attention.py:120). It computes
+//   out = softmax_2(q_s k^T + b_2) v
+// with q_s = bf16(q * q_scale) (q_scale = log2(e) / sqrt(d), product in fp32),
+// b_2 = bias * log2(e) rounded back to the bias dtype, keys past t excluded,
+// fp32 accumulation of both products, P rounded to bf16 for the PV product,
+// and the division by the row sum after PV.
+//
+// Layout: q, k, v, out are (b, t, h, d) bf16 with d = 64; bias is (h, t, t),
+// bf16 or fp32, shared by every batch row.
+//
+// Design: one block of 4 warps per (64-row query tile, batch*head). Each warp
+// owns 16 query rows. Keys stream through shared memory in tiles of 64; the
+// softmax runs online in base 2, with the running max and row sum kept in
+// registers. Products are mma.sync.m16n8k16 (bf16 in, fp32 accumulate). The
+// bias is read from device memory straight into the score fragments and
+// prefolded there. See ops/flash_attention.py for the bound and the plan.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 64;        // head dim
+constexpr int BQ = 64;       // query rows per block (4 warps x 16)
+constexpr int BK = 64;       // keys per tile
+constexpr int LDS = D + 8;   // shared-memory row stride (bf16), padded against bank conflicts
+constexpr int THREADS = 128;
+constexpr float LOG2E_F = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two bf16 from two rows of one column, packed low = first.
+__device__ __forceinline__ uint32_t ld_col_pair(const __nv_bfloat16* p) {
+  uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
+  uint32_t hi = *reinterpret_cast<const uint16_t*>(p + LDS);
+  return lo | (hi << 16);
+}
+
+// c += a * b, m16n8k16, A row-major bf16, B column-major bf16, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <bool BIAS_BF16>
+__device__ __forceinline__ float load_bias(const void* bias, size_t idx) {
+  if (BIAS_BF16) {
+    float b = __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[idx]);
+    return __bfloat162float(__float2bfloat16_rn(b * LOG2E_F));
+  } else {
+    return static_cast<const float*>(bias)[idx] * LOG2E_F;
+  }
+}
+
+// Copies rows [row0, row0 + 64) of one (batch, head) slice into shared memory,
+// zero-filling rows at or past t. With PREFOLD the values are multiplied by
+// `scale` in fp32 and rounded back to bf16.
+template <bool PREFOLD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          size_t row_stride, int row0, int t, float scale) {
+  for (int c = threadIdx.x; c < 64 * (D / 8); c += THREADS) {
+    const int r = c / (D / 8);
+    const int col = (c % (D / 8)) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < t) {
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + col);
+      if (PREFOLD) {
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * scale);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * LDS + col) = val;
+  }
+}
+
+template <bool BIAS_BF16>
+__global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const void* __restrict__ bias,
+    __nv_bfloat16* __restrict__ out, int t, int h, float q_scale) {
+  __shared__ __align__(16) __nv_bfloat16 sq[BQ * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sk[BK * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sv[BK * LDS];
+
+  const int bh = blockIdx.y;
+  const int bi = bh / h;
+  const int hi = bh % h;
+  const int q0 = blockIdx.x * BQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;   // fragment row group
+  const int tg = lane & 3;   // thread in group
+
+  const size_t row_stride = (size_t)h * D;
+  const size_t base = (size_t)bi * t * row_stride + (size_t)hi * D;
+
+  load_tile<true>(sq, q + base, row_stride, q0, t, q_scale);
+  __syncthreads();
+
+  // this warp's 16 query rows as A fragments, one per 16-wide slice of d
+  const int wr = warp * 16;
+  uint32_t aq[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const __nv_bfloat16* p = sq + (wr + g) * LDS + kk * 16 + tg * 2;
+    aq[kk][0] = ld_u32(p);
+    aq[kk][1] = ld_u32(p + 8 * LDS);
+    aq[kk][2] = ld_u32(p + 8);
+    aq[kk][3] = ld_u32(p + 8 * LDS + 8);
+  }
+
+  // rows owned by this thread: r_lo = q0 + wr + g, r_hi = r_lo + 8
+  const int r_lo = q0 + wr + g;
+  const int r_hi = r_lo + 8;
+  const size_t bias_lo = ((size_t)hi * t + (r_lo < t ? r_lo : 0)) * t;
+  const size_t bias_hi = ((size_t)hi * t + (r_hi < t ? r_hi : 0)) * t;
+
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int key0 = 0; key0 < t; key0 += BK) {
+    __syncthreads();  // every warp is done with the previous tile
+    load_tile<false>(sk, k + base, row_stride, key0, t, 1.f);
+    load_tile<false>(sv, v + base, row_stride, key0, t, 1.f);
+    __syncthreads();
+
+    // S = Q_s K^T for 16 rows x 64 keys: 8 n-tiles of 8 keys
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const __nv_bfloat16* kp = sk + (j * 8 + g) * LDS + tg * 2;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        mma_bf16(s[j], aq[kk], ld_u32(kp + kk * 16), ld_u32(kp + kk * 16 + 8));
+      }
+    }
+
+    // + prefolded bias; keys past t drop out of the softmax
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = key0 + j * 8 + tg * 2 + (e & 1);
+        float val = -CUDART_INF_F;
+        if (col < t) {
+          const size_t row_off = (e < 2) ? bias_lo : bias_hi;
+          val = s[j][e] + load_bias<BIAS_BF16>(bias, row_off + col);
+        }
+        s[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    // the first tile always holds key 0, so mx is finite from here on
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      alpha[r] = exp2f(m_run[r] - mx[r]);
+      m_run[r] = mx[r];
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - mx[e >> 1]);
+        s[j][e] = p;
+        l_run[e >> 1] += p;
+      }
+    }
+
+    // O += P V: P from the score fragments (bf16), V column pairs from smem
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ap[4];
+      ap[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+      ap[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+      ap[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      ap[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const __nv_bfloat16* vp = sv + (kk * 16 + tg * 2) * LDS + g;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        mma_bf16(o[j], ap, ld_col_pair(vp + j * 8), ld_col_pair(vp + 8 * LDS + j * 8));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const float inv_lo = 1.f / l_run[0];
+  const float inv_hi = 1.f / l_run[1];
+  __nv_bfloat16* ob = out + base;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + tg * 2;
+    if (r_lo < t) {
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r_lo * row_stride + col) =
+          pack_bf16x2(o[j][0] * inv_lo, o[j][1] * inv_lo);
+    }
+    if (r_hi < t) {
+      *reinterpret_cast<uint32_t*>(ob + (size_t)r_hi * row_stride + col) =
+          pack_bf16x2(o[j][2] * inv_hi, o[j][3] * inv_hi);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int vampnet_attention_fwd(const void* q, const void* k, const void* v,
+                                     const void* bias, int bias_is_bf16, void* out,
+                                     int b, int t, int h, int d, float q_scale,
+                                     int device, void* stream) {
+  if (d != D || b <= 0 || t <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((t + BQ - 1) / BQ, b * h);
+  const auto* qq = static_cast<const __nv_bfloat16*>(q);
+  const auto* kk = static_cast<const __nv_bfloat16*>(k);
+  const auto* vv = static_cast<const __nv_bfloat16*>(v);
+  auto* oo = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bias_is_bf16) {
+    attention_fwd_kernel<true><<<grid, THREADS, 0, s>>>(qq, kk, vv, bias, oo, t, h, q_scale);
+  } else {
+    attention_fwd_kernel<false><<<grid, THREADS, 0, s>>>(qq, kk, vv, bias, oo, t, h, q_scale);
+  }
+  return (int)cudaGetLastError();
+}

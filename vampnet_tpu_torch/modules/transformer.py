@@ -1,0 +1,244 @@
+"""VampNet masked-token transformer LM (counterpart of
+`vampnet_tpu/modules/transformer.py`).
+
+A bidirectional pre-norm T5-style stack: RMSNorm -> self-attention with a
+relative-position bias (the bucket table lives on layer 0 and the bias is
+shared by every layer) -> GEGLU feed-forward, over codec-token embeddings,
+with a Dense classifier. Activations are (b, t, d); logits come out
+(b, t, n_predict_codebooks, vocab) in fp32, the classifier's columns
+codebook-major as in the JAX package.
+
+Weights may be stored in any float dtype; every projection computes in
+`LMConfig.compute_dtype` (bf16 by default, fp32 for parity work), RMSNorm
+statistics in fp32. Not ported yet: ControlEncoder, ring attention, the
+fused FFN, int8 and dropout (this is the inference path).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.attention import dot_product_attention
+from .activations import new_gelu
+from .layers import CodebookEmbedding, Dense
+from .lora import LoRADense
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """Hyperparameters, with the JAX `LMConfig`'s defaults and field names."""
+
+    n_heads: int = 20
+    n_layers: int = 16
+    n_codebooks: int = 9
+    n_conditioning_codebooks: int = 0
+    latent_dim: int = 8
+    embedding_dim: int = 1280
+    vocab_size: int = 1024
+    lora_r: int = 0
+    attention_num_buckets: int = 32
+    attention_max_distance: int = 128
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def n_predict_codebooks(self) -> int:
+        return self.n_codebooks - self.n_conditioning_codebooks
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+    @property
+    def mask_token(self) -> int:
+        return self.vocab_size
+
+    @staticmethod
+    def coarse(**kw) -> "LMConfig":
+        """4 codebooks, 20 layers."""
+        return LMConfig(**{**dict(n_codebooks=4, n_conditioning_codebooks=0, n_layers=20), **kw})
+
+    @staticmethod
+    def c2f(**kw) -> "LMConfig":
+        """14 codebooks (4 conditioning), 16 layers."""
+        return LMConfig(**{**dict(n_codebooks=14, n_conditioning_codebooks=4, n_layers=16), **kw})
+
+
+def relative_position_bucket(relative_position: torch.Tensor, bidirectional: bool = True,
+                             num_buckets: int = 32, max_distance: int = 128) -> torch.Tensor:
+    """T5 bucketing of relative positions: half exact buckets, half
+    log-spaced up to max_distance. The log is taken in fp32 and truncated to
+    an integer, as the JAX function does."""
+    ret = torch.zeros_like(relative_position)
+    n = relative_position
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (n > 0).to(n.dtype) * num_buckets
+        n = torch.abs(n)
+    else:
+        n = torch.clamp(-n, min=0)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = max_exact + (
+        torch.log(torch.clamp(n, min=1).to(torch.float32) / max_exact)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).to(n.dtype)
+    val_if_large = torch.clamp(val_if_large, max=num_buckets - 1)
+    return ret + torch.where(is_small, n, val_if_large)
+
+
+def position_bias_from_params(model: "VampNetLM", t_q: int,
+                              t_k: Optional[int] = None) -> torch.Tensor:
+    """(heads, t_q, t_k) T5 bias from layer 0's bucket table, in the table's
+    dtype. It depends only on the sequence length, so the serving path builds
+    it once per request and hands it to every forward."""
+    cfg = model.config
+    t_k = t_q if t_k is None else t_k
+    table = model.transformer.layers_0.self_attn.relative_attention_bias
+    dev = table.device
+    rel = (torch.arange(t_k, device=dev)[None, :]
+           - torch.arange(t_q, device=dev)[:, None])
+    buckets = relative_position_bucket(
+        rel, bidirectional=True, num_buckets=cfg.attention_num_buckets,
+        max_distance=cfg.attention_max_distance,
+    )
+    return table[buckets].permute(2, 0, 1).contiguous()
+
+
+class RMSNorm(nn.Module):
+    """Scale-only T5 layer norm with fp32 statistics."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + self.eps)
+        return (self.weight.float() * y).to(x.dtype)
+
+
+class MultiHeadRelativeAttention(nn.Module):
+    """Self-attention over (b, t, d) with a head-shared additive bias."""
+
+    def __init__(self, d_model: int, n_head: int, has_relative_attention_bias: bool,
+                 cfg: LMConfig, device=None):
+        super().__init__()
+        self.n_head = n_head
+        dense = lambda: LoRADense(d_model, d_model, r=cfg.lora_r,
+                                  compute_dtype=cfg.dtype, device=device)
+        self.w_qs, self.w_ks, self.w_vs, self.fc = dense(), dense(), dense(), dense()
+        if has_relative_attention_bias:
+            self.relative_attention_bias = nn.Parameter(
+                torch.empty(cfg.attention_num_buckets, n_head, device=device)
+            )
+
+    def forward(self, x: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
+        b, t, d = x.shape
+        shape = (b, t, self.n_head, d // self.n_head)
+        q = self.w_qs(x).reshape(shape)
+        k = self.w_ks(x).reshape(shape)
+        v = self.w_vs(x).reshape(shape)
+        out = dot_product_attention(q, k, v, bias=position_bias)
+        return self.fc(out.reshape(b, t, d))
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward: w_1 to 4d, gate one half by the GELU of the
+    other, w_2 from 2d back to d."""
+
+    def __init__(self, d_model: int, cfg: LMConfig, device=None):
+        super().__init__()
+        self.w_1 = LoRADense(d_model, 4 * d_model, r=cfg.lora_r,
+                             compute_dtype=cfg.dtype, device=device)
+        self.w_2 = LoRADense(2 * d_model, d_model, r=cfg.lora_r,
+                             compute_dtype=cfg.dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p1, p2 = self.w_1(x).chunk(2, dim=-1)
+        return self.w_2(p1 * new_gelu(p2))
+
+
+class TransformerLayer(nn.Module):
+    """Pre-norm block: RMSNorm -> self-attention -> residual,
+    RMSNorm -> FFN -> residual."""
+
+    def __init__(self, cfg: LMConfig, has_relative_attention_bias: bool, device=None):
+        super().__init__()
+        d = cfg.embedding_dim
+        self.norm_1 = RMSNorm(d, device=device)
+        self.self_attn = MultiHeadRelativeAttention(
+            d, cfg.n_heads, has_relative_attention_bias, cfg, device=device)
+        self.norm_3 = RMSNorm(d, device=device)
+        self.feed_forward = FeedForward(d, cfg, device=device)
+
+    def forward(self, x: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
+        x = x + self.self_attn(self.norm_1(x), position_bias)
+        return x + self.feed_forward(self.norm_3(x))
+
+
+class TransformerStack(nn.Module):
+    """n_layers layers (`layers_0` holds the bucket table) and a final norm."""
+
+    def __init__(self, cfg: LMConfig, device=None):
+        super().__init__()
+        self.n_layers = cfg.n_layers
+        for i in range(cfg.n_layers):
+            self.add_module(f"layers_{i}", TransformerLayer(cfg, i == 0, device=device))
+        self.norm = RMSNorm(cfg.embedding_dim, device=device)
+
+    def forward(self, x: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"layers_{i}")(x, position_bias)
+        return self.norm(x)
+
+
+class VampNetLM(nn.Module):
+    """The full LM. Parameter names follow the flax tree, so `convert.py`
+    maps one onto the other by path."""
+
+    def __init__(self, config: LMConfig, device="cuda"):
+        super().__init__()
+        if str(device) != "meta":
+            from ..util import resolve_device
+
+            device = resolve_device(device)
+        cfg = self.config = config
+        self.embedding = CodebookEmbedding(
+            cfg.latent_dim, cfg.n_codebooks, cfg.embedding_dim,
+            compute_dtype=cfg.dtype, device=device,
+        )
+        self.transformer = TransformerStack(cfg, device=device)
+        self.classifier = Dense(
+            cfg.embedding_dim, cfg.vocab_size * cfg.n_predict_codebooks,
+            bias=True, compute_dtype=cfg.dtype, device=device,
+        )
+
+    @property
+    def mask_token(self) -> int:
+        return self.config.mask_token
+
+    def forward(self, latents: torch.Tensor,
+                position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """latents (b, t, n_codebooks*latent_dim) -> fp32 logits
+        (b, t, n_predict_codebooks, vocab)."""
+        cfg = self.config
+        if position_bias is None:
+            position_bias = position_bias_from_params(self, latents.shape[1])
+        x = self.embedding(latents)
+        out = self.transformer(x, position_bias)
+        logits = self.classifier(out)  # (b, t, C*vocab), codebook-major
+        b, t, _ = logits.shape
+        return logits.reshape(b, t, cfg.n_predict_codebooks, cfg.vocab_size).float()
+
+    def forward_codes(self, codes: torch.Tensor, codebooks: torch.Tensor,
+                      position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """codes (b, n_codebooks, t) -> logits in one call (the sampler's
+        forward)."""
+        return self(self.embedding.from_codes(codes, codebooks), position_bias)

@@ -1,0 +1,137 @@
+"""Builds the port's CUDA kernels and loads them with `ctypes`.
+
+Every `csrc/*.cu` file is compiled by its own `nvcc` process (all started
+together) for `sm_90a`, and the objects are linked into one shared library
+with a plain C interface. Nothing includes PyTorch's headers, so a cold build
+takes seconds. The library's name carries a hash of the sources and flags:
+it is rebuilt only when one of them changes. The build directory
+(`vampnet_tpu_torch/_build/`) is listed in `.gitignore`.
+
+There is no fallback: a missing `nvcc` or a failed compile raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
+_SIGNATURES = {
+    # q, k, v, bias, bias_is_bf16, out, b, t, h, d, q_scale, device, stream
+    "vampnet_attention_fwd": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _P),
+    # logits, keys, temp, top_p, flag, tokens, probs, b, flat, vocab, step,
+    # typical, typical_mass, typical_min_tokens, use_top_p, device, stream
+    "vampnet_sampler": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _F, _I, _I, _I, _P),
+}
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libvampnet_kernels_{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile (if the sources changed) and return the library's path."""
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}_{time.monotonic_ns()}"
+    procs = []
+    try:
+        for src in sources():
+            obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+            log = open(BUILD_DIR / f"{src.stem}.log", "w")
+            procs.append((src, obj, log, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=log, stderr=subprocess.STDOUT,
+            )))
+        for src, _obj, log, proc in procs:
+            rc = proc.wait()
+            log.close()
+            if rc != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} (rc {rc}):\n"
+                    + (BUILD_DIR / f"{src.stem}.log").read_text()
+                )
+        tmp = BUILD_DIR / f"tmp_{tag}.so"
+        link = subprocess.run(
+            [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+             *[str(obj) for _s, obj, _l, _p in procs]],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for _src, obj, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+            obj.unlink(missing_ok=True)
+    return so
+
+
+def build_logs() -> str:
+    """The compiler's output of the last build (ptxas register and shared
+    memory use per kernel)."""
+    return "\n".join(
+        (BUILD_DIR / f"{src.stem}.log").read_text()
+        for src in sources() if (BUILD_DIR / f"{src.stem}.log").exists()
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel failed to launch: CUDA error {rc}")
