@@ -2,18 +2,26 @@
 
     python3 chip_smoke.py
 
-Phases, each of which must pass:
+Phases, each of which must pass (no failure is caught):
   1. print the card (`nvidia-smi`);
   2. build the CUDA kernels from `vampnet_tpu_torch/csrc` (nvcc, one process
      per source, started together) and print the build seconds;
   3. hold every kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it (coarse and c2f), and time kernel,
-     plain version and, where one exists, a single PyTorch library call;
-  4. serve ten full-width `Interface.vamp_e2e` requests (coarse 20 layers,
-     c2f 16 layers, d=1280, the 44.1 kHz codec; random weights from a seed)
-     and check their outputs and the kernels' launch counts;
-  5. check the card's results against the CPU on small inputs: the coarse
-     LM's logits (CPU in fp32) and the codec's codes and waveform.
+     shapes the serving path (coarse and c2f) and the coarse training step
+     (b=8, and b=16 once) give it, and time kernel, plain version and, where
+     one exists, a single PyTorch library call;
+  4. serve full-width `Interface.vamp_e2e` requests (coarse 20 layers, c2f
+     16 layers, d=1280, the 44.1 kHz codec; random weights from a seed) and
+     check their outputs and the serving kernels' launch counts;
+  5. train the full-width coarse LM (dropout 0.1, bf16 compute, fp32 params
+     and Adam moments) for a few steps on 8 x 10 s of audio through the
+     frozen codec, and check the loss, the grad norm, the parameters, the
+     attention gradients and the training kernels' launch counts; profile
+     one more step;
+  6. check the card's results against the CPU on small inputs: the coarse
+     LM's logits (CPU in fp32), the codec's codes and waveform, and a small
+     training step's loss and gradients (CPU in fp32);
+  7. profile one more request.
 Then it prints one JSON line with every kernel's numbers, the card line
 again, and `{"ok": true, "device": ...}` as the last line. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -26,7 +34,9 @@ import sys
 import time
 
 SEED = 0
-REQUESTS = 10
+REQUESTS = 5
+TRAIN_STEPS = 5
+TRAIN_BATCH = 8
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
@@ -103,6 +113,142 @@ def check_attention(b, t, h, d, bias_dtype, gen):
     )
 
 
+def rel_err(x, ref):
+    """Relative Frobenius error of x against ref, in fp32."""
+    return float((x.float() - ref.float()).norm() / ref.float().norm().clamp(min=1e-30))
+
+
+def check_attention_train(b, t, h, d, gen, timed=True):
+    """The training kernels at (b, t, h, d): forward-with-lse against its
+    plain version, then the dk/dv and dq/dbias kernels against theirs on the
+    same (out, lse, do). Returns one result per kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from vampnet_tpu_torch.ops.flash_attention import (
+        LOG2E,
+        attention_bwd_dkdv,
+        attention_bwd_dkdv_plain,
+        attention_bwd_dq_dbias,
+        attention_bwd_dq_dbias_plain,
+        attention_delta,
+        attention_fwd_lse,
+        attention_fwd_lse_plain,
+    )
+
+    dev = "cuda"
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    bias = torch.randn((h, t, t), generator=gen, device=dev)
+    out, lse = attention_fwd_lse(q, k, v, bias)
+    ref_out, ref_lse = attention_fwd_lse_plain(q, k, v, bias)
+    delta = attention_delta(out, do)
+    bwd_args = (q, k, v, bias, lse, do, delta)
+    dk, dv = attention_bwd_dkdv(*bwd_args)
+    dq, dbias = attention_bwd_dq_dbias(*bwd_args)
+    ref_dk, ref_dv = attention_bwd_dkdv_plain(*bwd_args)
+    ref_dq, ref_dbias = attention_bwd_dq_dbias_plain(*bwd_args)
+    torch.cuda.synchronize()
+    for name, x in (("out", out), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv),
+                    ("dbias", dbias)):
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"training attention kernels: non-finite {name}")
+    out_err = (out.float() - ref_out.float()).abs()
+    lse_err = float((lse - ref_lse).abs().max())
+    # out: bf16, P rounded against a running max (as the inference kernel);
+    # lse: fp32 sums of the same terms in another order
+    if bool((out_err > 2e-2 + 2e-2 * ref_out.float().abs()).any()) or not lse_err <= 1e-3:
+        raise AssertionError(f"forward-with-lse disagrees: out max abs err "
+                             f"{float(out_err.max())}, lse max abs err {lse_err}")
+    errs = {"dq": rel_err(dq, ref_dq), "dk": rel_err(dk, ref_dk), "dv": rel_err(dv, ref_dv),
+            "dbias": rel_err(dbias, ref_dbias)}
+    # bf16 products on both sides; the kernels round P and dS against the
+    # same lse, but sum in another order (dq with fp32 atomics). Each limit
+    # sits a few times above the readings of sound kernels on an H100 at
+    # b=8 and b=16 (dk 9.8e-5, dv 9.1e-5, dq 2.8e-3, dbias 2.9e-7), so a
+    # kernel that lost its fp32 accumulation or stored dbias in bf16 fails
+    limits = {"dq": 1e-2, "dk": 1e-3, "dv": 1e-3, "dbias": 1e-5}
+    if any(errs[n] > limits[n] for n in errs):
+        raise AssertionError(f"backward kernels disagree (rel Frobenius): {errs}")
+    fwd = dict(max_abs_err=float(out_err.max()), lse_max_abs_err=lse_err)
+    dkdv = dict(max_abs_err=max(float((dk.float() - ref_dk.float()).abs().max()),
+                                float((dv.float() - ref_dv.float()).abs().max())),
+                rel_err_dk=errs["dk"], rel_err_dv=errs["dv"])
+    dqdb = dict(max_abs_err=max(float((dq.float() - ref_dq.float()).abs().max()),
+                                float((dbias - ref_dbias).abs().max())),
+                rel_err_dq=errs["dq"], rel_err_dbias=errs["dbias"])
+    if not timed:
+        return {"attention_fwd_lse": fwd, "attention_bwd_dkdv": dkdv,
+                "attention_bwd_dq_dbias": dqdb}
+
+    # bounds: each input read once, each output written once; one score-sized
+    # product is 2 b h t^2 d operations
+    act = b * t * h * d * 2  # one bf16 (b, t, h, d) tensor
+    rows = b * h * t * 4  # one fp32 (b*h, t) tensor
+    bias_bytes = h * t * t * 4
+    prod = 2 * b * h * t * t * d
+
+    def bound(io_bytes, n_products):
+        tb, tf = io_bytes / H100_BYTES_PER_S, n_products * prod / H100_BF16_FLOPS
+        return dict(bound_ms=1e3 * max(tb, tf), bound_by="bytes" if tb >= tf else "operations")
+
+    fwd.update(bound(4 * act + bias_bytes + rows, 2))
+    dkdv.update(bound(6 * act + bias_bytes + 2 * rows, 4))  # s, dp, dv, dk
+    dqdb.update(bound(5 * act + 2 * bias_bytes + 2 * rows, 3))  # s, dp, dq
+    fwd.update(ms=time_ms(lambda: attention_fwd_lse(q, k, v, bias)),
+               plain_ms=time_ms(lambda: attention_fwd_lse_plain(q, k, v, bias), reps=5))
+
+    # the library yardstick for the forward with lse: SDPA's memory-efficient
+    # kernel with compute_log_sumexp, which returns out and natural-log lse
+    # rows. Its bias takes the query's dtype (bf16), broadcast over the batch
+    # as SDPA broadcasts a mask, its rows padded to 16 elements as SDPA pads
+    # them before it calls this kernel.
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    tp = -(-t // 16) * 16
+    lib_bias = torch.zeros((1, h, t, tp), dtype=q.dtype, device=dev)
+    lib_bias[..., :t] = bias
+    lib_bias = lib_bias[..., :t].expand(b, h, t, t)
+    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+
+    def lib_fwd():
+        return efficient(qt, kt, vt, lib_bias, True)[:2]
+
+    lib_lse = lib_fwd()[1][:, :, :t].reshape(b * h, t) * LOG2E
+    lib_err = float((lib_lse - ref_lse).abs().max())
+    # the same rows up to the bias's rounding to bf16 (about 2^-9 of it)
+    if not lib_err <= 5e-2:
+        raise AssertionError(f"the library forward computes another lse: max abs err {lib_err}")
+    fwd.update(library_ms=time_ms(lib_fwd), library_lse_max_abs_err=lib_err,
+               library_note="aten._scaled_dot_product_efficient_attention with "
+                            "compute_log_sumexp, bf16 bias")
+    dkdv.update(ms=time_ms(lambda: attention_bwd_dkdv(*bwd_args)),
+                plain_ms=time_ms(lambda: attention_bwd_dkdv_plain(*bwd_args), reps=5))
+    dqdb.update(ms=time_ms(lambda: attention_bwd_dq_dbias(*bwd_args)),
+                plain_ms=time_ms(lambda: attention_bwd_dq_dbias_plain(*bwd_args), reps=5))
+
+    # the library yardstick for the backward: autograd through one
+    # scaled_dot_product_attention call, the bias expanded to a (b, h, t, t)
+    # float mask that requires grad; the backward alone is timed
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    mask = bias.to(q.dtype)[None].expand(b, h, t, t).contiguous().requires_grad_()
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_do = do.transpose(1, 2)
+    lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt, mask), lib_do, retain_graph=True)
+    if lib_grads[3] is None or not torch.isfinite(lib_grads[3].float()).all():
+        raise AssertionError("the library backward gave no finite mask gradient")
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt, mask), lib_do,
+                                                 retain_graph=True), reps=5)
+    note = "whole backward (dq, dk, dv, dmask (b, h, t, t)) of one SDPA call"
+    for res in (dkdv, dqdb):
+        res.update(library_ms=lib_ms, library_note=note)
+    # the backward as one function: q, k, v, do, bias, lse, delta read,
+    # dq, dk, dv, dbias written, 5 products
+    pair = bound(7 * act + 2 * bias_bytes + 2 * rows, 5)
+    print(f"kernel attention backward pair: {dkdv['ms'] + dqdb['ms']:.4f} ms, bound "
+          f"{pair['bound_ms']:.4f} ms ({pair['bound_by']}), library backward {lib_ms:.4f} ms")
+    return {"attention_fwd_lse": fwd, "attention_bwd_dkdv": dkdv, "attention_bwd_dq_dbias": dqdb}
+
+
 def check_sampler(b, flat, gen):
     import torch
 
@@ -146,12 +292,28 @@ def check_sampler(b, flat, gen):
     return result
 
 
-def random_state(module, gen, std=0.02):
-    """normal(0, std) for every parameter, drawn on the card from `gen`."""
+def random_state(module, gen, fan_in=False):
+    """Random weights drawn on `gen`'s device: normal(0, 0.02) for every
+    parameter, or with `fan_in` weights that keep activations O(1) at any
+    width (Dense weights normal / sqrt(fan-in), norm scales 1 + 0.1 normal,
+    biases 0.02 normal, the bucket table and MASK latents normal). The small
+    training check against the CPU takes the second: at d=128, 0.02 weights
+    leave attention near uniform and the gradients it compares near zero."""
     import torch
 
-    return {k: torch.randn(v.shape, generator=gen, device=gen.device) * std
-            for k, v in module.state_dict().items()}
+    out = {}
+    for k, v in module.state_dict().items():
+        x = torch.randn(v.shape, generator=gen, device=gen.device)
+        if not fan_in:
+            x = 0.02 * x
+        elif k.endswith(".weight") and v.dim() == 2:
+            x = x / v.shape[1] ** 0.5
+        elif k.endswith(".weight"):
+            x = 1.0 + 0.1 * x
+        elif k.endswith(".bias"):
+            x = 0.02 * x
+        out[k] = x
+    return out
 
 
 def bench_signal(sr, seconds):
@@ -210,24 +372,158 @@ def check_against_cpu(iface, gen):
                 codec_wave_rel_err=wav_err)
 
 
-def profile_request(iface, sig, kw):
-    """Device time by kernel over one request (torch.profiler)."""
+def profile(label, fn):
+    """Device time by kernel over one call of fn (torch.profiler)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        iface.vamp_e2e(sig, seed=99, **kw)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     # kernels only: the aten ops' rows repeat their kernels' device time
     rows = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"profile: wall {wall * 1e3:.1f} ms (profiler on), kernels busy {busy_ms:.1f} ms, "
-          f"{sum(r[2] for r in rows)} kernel launches")
+    if not rows:
+        raise AssertionError(f"profile {label}: the profiler saw no device time")
+    print(f"profile {label}: wall {wall * 1e3:.1f} ms (profiler on), kernels busy "
+          f"{busy_ms:.1f} ms, {sum(r[2] for r in rows)} kernel launches")
     for us, key, count in rows[:15]:
-        print(f"profile:   {us / 1e3:9.2f} ms  x{count:<6d} {key[:90]}")
+        print(f"profile {label}:   {us / 1e3:9.2f} ms  x{count:<6d} {key[:90]}")
+
+
+def train_audio(sr, hop, seconds, batch):
+    """`batch` rows of `seconds` of noise at `sr`, cut to whole codec frames."""
+    import numpy as np
+    import torch
+
+    n = math.ceil(seconds * sr / hop) * hop
+    rng = np.random.default_rng(SEED)
+    wav = (0.1 * rng.standard_normal((batch, n, 1))).astype(np.float32)
+    return torch.from_numpy(wav).cuda()
+
+
+def train_full_width(codec, codebooks, gen):
+    """TRAIN_STEPS coarse training steps at full width; checks each step and
+    the state after them. Returns (results, launches of the training kernels)."""
+    import torch
+
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.ops.flash_attention import (
+        attention_bwd_dkdv,
+        attention_bwd_dq_dbias,
+        attention_fwd_lse,
+        flash_attention_with_bias,
+    )
+    from vampnet_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    cfg = LMConfig.coarse(dropout=0.1)
+    lm = VampNetLM(cfg, device="meta").to_empty(device="cuda")
+    lm.load_state_dict(random_state(lm, gen))
+    opt = make_optimizer(cfg.embedding_dim)
+    state = TrainState.create(lm, opt)
+    step = make_train_step(lm, codec, opt)
+    audio = train_audio(codec.config.sample_rate, codec.config.hop_length, 10.0, TRAIN_BATCH)
+    cbs = codebooks[: cfg.n_codebooks]
+    init = {k: v.clone() for k, v in lm.state_dict().items()}
+    n_params = sum(p.numel() for p in state.params)
+    print(f"train: coarse LM {n_params} params, batch {tuple(audio.shape)}, "
+          f"dropout {cfg.dropout}, compute {cfg.compute_dtype}")
+    dgen = torch.Generator(device="cuda")
+    dgen.manual_seed(SEED)
+    counters = {"attention_fwd_lse": attention_fwd_lse, "attention_bwd_dkdv": attention_bwd_dkdv,
+                "attention_bwd_dq_dbias": attention_bwd_dq_dbias}
+    for c in (*counters.values(), flash_attention_with_bias):
+        c.launches = 0
+    walls, peaks = [], []
+    for i in range(TRAIN_STEPS):
+        before = {n: c.launches for n, c in counters.items()}
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, cbs, audio, dgen)
+        loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        made = {n: c.launches - before[n] for n, c in counters.items()}
+        print(f"train step {i}: wall {walls[-1] * 1e3:.1f} ms, peak {peaks[-1]:.2f} GiB, "
+              f"loss {loss:.5f}, grad_norm {grad_norm:.5f}, launches {made}")
+        if not (math.isfinite(loss) and math.isfinite(grad_norm)):
+            raise AssertionError(f"train step {i}: loss {loss}, grad_norm {grad_norm}")
+        if any(m != cfg.n_layers for m in made.values()):
+            raise AssertionError(f"train step {i}: launches {made}, want {cfg.n_layers} each")
+    launches = {n: c.launches for n, c in counters.items()}
+    if flash_attention_with_bias.launches:
+        raise AssertionError("training launched the forward-only inference kernel")
+
+    # the first moment is a decayed sum of the clipped gradients: exactly zero
+    # for a parameter that never received one
+    adam = state.opt_state.adamw.state
+    mu = {n: adam[p]["exp_avg"] for n, p in lm.named_parameters() if p.requires_grad}
+    for name, m in mu.items():
+        attn = any(f".self_attn.{w}." in name for w in ("w_qs", "w_ks", "w_vs"))
+        if (attn or name.endswith("relative_attention_bias")) and not bool((m != 0).any()):
+            raise AssertionError(f"{name} received no gradient")
+    if not all(bool(torch.isfinite(p).all()) for p in lm.parameters()):
+        raise AssertionError("non-finite parameters after training")
+    moved = sum(not torch.equal(v, init[k]) for k, v in lm.state_dict().items())
+    if moved == 0:
+        raise AssertionError("no parameter moved")
+    steady = sorted(walls[1:])
+    result = dict(step_ms=[round(w * 1e3, 1) for w in walls],
+                  median_step_ms_after_first=steady[len(steady) // 2] * 1e3,
+                  peak_gib=max(peaks), params_moved=moved, params=len(init),
+                  launches_per_step={n: launches[n] // TRAIN_STEPS for n in launches})
+    print("train: " + json.dumps(result))
+    profile("train step", lambda: step(state, cbs, audio, dgen))
+    return result, launches
+
+
+def check_train_against_cpu(gen, device="cuda"):
+    """A small training loss and its gradients: on `device` in bf16 compute
+    (through the kernels on the card) against the CPU in fp32 (plain path),
+    from one state, one batch and one r and mask."""
+    import dataclasses
+
+    import torch
+
+    from vampnet_tpu_torch import mask as pmask
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.ops.flash_attention import attention_bwd_dq_dbias
+    from vampnet_tpu_torch.train import loss_and_grads
+    from vampnet_tpu_torch.util import codebook_flatten
+
+    cfg = LMConfig(n_heads=2, n_layers=2, n_codebooks=4, embedding_dim=128, dropout=0.0)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    lm32 = VampNetLM(cfg32, device="cpu")
+    lm32.load_state_dict(random_state(lm32, cpu_gen, fan_in=True))
+    lm = VampNetLM(cfg, device="meta").to_empty(device=device)
+    lm.load_state_dict(lm32.state_dict())
+    z = torch.randint(0, cfg.vocab_size, (2, cfg.n_codebooks, 200), generator=cpu_gen)
+    cbs = torch.randn((cfg.n_codebooks, cfg.vocab_size, cfg.latent_dim), generator=cpu_gen)
+    r = torch.tensor([0.4, 0.7])
+    z_masked, mask = pmask.apply_mask(z, pmask.random(cpu_gen, z, r), cfg.mask_token)
+    batch = (z_masked, cbs, z, codebook_flatten(mask), r)
+    n0 = attention_bwd_dq_dbias.launches
+    loss, _, grads = loss_and_grads(lm, *(x.to(device) for x in batch))
+    loss32, _, grads32 = loss_and_grads(lm32, *batch)
+    if device == "cuda" and attention_bwd_dq_dbias.launches - n0 != cfg.n_layers:
+        raise AssertionError("the small training step did not go through the kernels")
+    loss_err = abs(float(loss) - float(loss32)) / abs(float(loss32))
+    names = [n for n, p in lm.named_parameters() if p.requires_grad]
+    errs = {n: rel_err(g.cpu(), g32) for n, g, g32 in zip(names, grads, grads32)}
+    worst = max(errs, key=errs.get)
+    # bf16 activations and products through 2 layers against fp32
+    if not loss_err <= 1e-2 or errs[worst] > 5e-2:
+        raise AssertionError(f"small training step vs CPU fp32: loss rel err {loss_err}, "
+                             f"worst gradient {worst} rel err {errs[worst]}")
+    return dict(train_loss_rel_err=loss_err, train_grad_worst=worst,
+                train_grad_worst_rel_err=errs[worst])
 
 
 def main() -> int:
@@ -287,6 +583,13 @@ def main() -> int:
         results[name][shape] = check()
         print(f"kernel {name}[{shape}]: " + json.dumps(results[name][shape]))
     attn, samp = results["attention_fwd"], results["sampler"]
+    # the training kernels at the coarse training shape, and once at b=16,
+    # where the JAX package takes its split backward pair (K6/K7)
+    train_k = check_attention_train(TRAIN_BATCH, t_coarse, coarse_cfg.n_heads, d_head, gen)
+    train_k16 = check_attention_train(16, t_coarse, coarse_cfg.n_heads, d_head, gen, timed=False)
+    for name in train_k:
+        print(f"kernel {name}[train b={TRAIN_BATCH}]: " + json.dumps(train_k[name]))
+        print(f"kernel {name}[train b=16]: " + json.dumps(train_k16[name]))
 
     # ---- 4. full-width requests ----
     t0 = time.perf_counter()
@@ -333,12 +636,16 @@ def main() -> int:
     print(f"requests: {REQUESTS}, wall ms " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
           + f"; after the first: q1 {quart[0]:.1f}, median {quart[1]:.1f}, q3 {quart[2]:.1f}")
 
-    # ---- 5. the card against the CPU on small inputs ----
+    # ---- 5. full-width training steps ----
+    train, train_launches = train_full_width(iface.codec, iface.codebooks, gen)
+    launches.update(train_launches)
+
+    # ---- 6. the card against the CPU on small inputs ----
     print("cpu check: " + json.dumps(check_against_cpu(iface, gen)))
-    try:
-        profile_request(iface, sig, kw)
-    except Exception as e:  # a measurement aid only; the checks above decide
-        print(f"profile: unavailable ({type(e).__name__}: {e})")
+    print("cpu check: " + json.dumps(check_train_against_cpu(gen)))
+
+    # ---- 7. where a request's time goes ----
+    profile("request", lambda: iface.vamp_e2e(sig, seed=99, **kw))
 
     def entry(name, source, replaces, res):
         main_shape = res["coarse"]
@@ -355,6 +662,25 @@ def main() -> int:
         entry("sampler", "vampnet_tpu_torch/csrc/sampler.cu",
               "vampnet_tpu/ops/sampler_kernel.py:80", samp),
     ]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for name, source, replaces, also in (
+        ("attention_fwd_lse", "attention_fwd.cu", ":254",
+         "_attn_kernel_fwd_lse_dt :153 (same out and lse)"),
+        ("attention_bwd_dkdv", "attention_bwd.cu", ":336",
+         "with attention_bwd_dq_dbias: _attn_kernel_bwd_wholeseq :428"),
+        ("attention_bwd_dq_dbias", "attention_bwd.cu", ":381",
+         "with attention_bwd_dkdv: _attn_kernel_bwd_wholeseq :428"),
+    ):
+        res = train_k[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"vampnet_tpu_torch/csrc/{source}",
+            replaces=f"vampnet_tpu/ops/flash_attention.py{replaces}", also_replaces=also,
+            launches=launches[name], **{k: res[k] for k in keys},
+            shape=f"b={TRAIN_BATCH} t={t_coarse} h={coarse_cfg.n_heads} d={d_head}",
+            library_note=res.get("library_note"),
+            b16={k: v for k, v in train_k16[name].items()},
+        ))
+    print("train summary: " + json.dumps(train))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

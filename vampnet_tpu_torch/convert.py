@@ -1,5 +1,5 @@
 """Weight bridge: the JAX package's flax param trees, given as nested dicts
-of numpy arrays, to the port's state dicts.
+of numpy arrays, to the port's state dicts, and (for the LM) back.
 
 The port names its parameters after the flax tree (`layers_0`, `w_qs`,
 `quantizers_3`, ...), so a flax path "a/b/kernel" becomes the key "a.b.weight"
@@ -45,6 +45,23 @@ def lm_state_dict_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
         else:
             sd[path] = _tensor(x)
     return sd
+
+
+def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's `VampNetLM` state dict -> a flax-shaped nested dict of fp32
+    numpy arrays (the inverse of `lm_state_dict_from_jax`): 2-D `.weight`s
+    are Dense kernels and go back to (in, out) as `.kernel`."""
+    tree: Dict = {}
+    for key, val in state_dict.items():
+        x = val.detach().to(torch.float32).cpu().numpy()
+        *path, leaf = key.split(".")
+        if leaf == "weight" and x.ndim == 2:
+            leaf, x = "kernel", x.T
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(x)
+    return tree
 
 
 def codec_state_dict_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:

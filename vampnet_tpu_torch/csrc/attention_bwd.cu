@@ -1,0 +1,394 @@
+// Attention backward with a head-shared additive bias, for Hopper (sm_90a).
+//
+// Port of the Pallas training backward: the split pair
+// `_attn_kernel_bwd_dkdv` (vampnet_tpu/ops/flash_attention.py:336) and
+// `_attn_kernel_bwd_dq_dbias` (:381), which between them compute the function
+// of the one-pass `_attn_kernel_bwd_wholeseq` (:428). With
+//   q_s = bf16(q * q_scale), b_2 = bias * log2(e)   (the forward's prefolds)
+//   s   = q_s k^T + b_2,  p = exp2(s - lse),  dp = do v^T,
+//   ds  = p * (dp - delta) * ln(2),   delta = rowsum(do * out) (given),
+// the kernels write
+//   dk = ds^T q_s, dv = p^T do                     (attention_bwd_dkdv_kernel)
+//   dq = (ds k) * q_scale, dbias = sum_b ds * log2(e)  (attention_bwd_dq_dbias_kernel)
+// where the last factors are the prefolds' chain rule. P and dS enter their
+// products as bf16, all products accumulate in fp32 (mma.sync m16n8k16).
+//
+// Layout: q, k, v, do, dk, dv are (b, t, h, d) bf16 with d = 64; bias and
+// dbias are (h, t, t) fp32; lse and delta are (b*h, t) fp32; dq_acc is
+// (b, t, h, d) fp32, zeroed by the caller, and summed into with atomics.
+//
+// Design (see ops/flash_attention.py for the bound):
+//  * dkdv: one block of 4 warps per (64-key tile, batch*head); each warp owns
+//    16 keys and walks every 64-row query tile, computing S^T = K Q_s^T so
+//    that P^T and dS^T sit in registers as the A operand of dV += P^T dO and
+//    dK += dS^T Q_s. dK and dV stay in registers and are written once.
+//  * dq_dbias: one block per (64-key tile, 64-query tile, head); each warp owns
+//    16 queries and the block loops over the batch, so the (64, 64) tile of
+//    the head's bias is read once and its gradient summed over the batch in
+//    registers and written once. dQ's partial sum over this key tile is added
+//    into the fp32 accumulator with atomics.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 64;        // head dim
+constexpr int BT = 64;       // rows per tile, queries and keys alike (4 warps x 16)
+constexpr int LDS = D + 8;   // shared-memory row stride (bf16), padded against bank conflicts
+constexpr int SBS = BT + 4;  // bias tile row stride (fp32): conflict-free transposed reads
+constexpr int THREADS = 128;
+constexpr float LOG2E_F = 1.4426950408889634f;
+constexpr float LN2_F = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two bf16 from two rows of one column, packed low = first.
+__device__ __forceinline__ uint32_t ld_col_pair(const __nv_bfloat16* p) {
+  uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
+  uint32_t hi = *reinterpret_cast<const uint16_t*>(p + LDS);
+  return lo | (hi << 16);
+}
+
+// c += a * b, m16n8k16, A row-major bf16, B column-major bf16, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Copies rows [row0, row0 + 64) of one (batch, head) slice into shared memory,
+// zero-filling rows at or past t. With PREFOLD the values are multiplied by
+// `scale` in fp32 and rounded back to bf16 (the forward's q prefold).
+template <bool PREFOLD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          size_t row_stride, int row0, int t, float scale) {
+  for (int c = threadIdx.x; c < BT * (D / 8); c += THREADS) {
+    const int r = c / (D / 8);
+    const int col = (c % (D / 8)) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < t) {
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + col);
+      if (PREFOLD) {
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * scale);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * LDS + col) = val;
+  }
+}
+
+// A fragments (16 rows x 64) of rows [r0, r0 + 16) of a shared tile.
+__device__ __forceinline__ void load_a(uint32_t a[D / 16][4], const __nv_bfloat16* tile, int r0,
+                                       int g, int tg) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const __nv_bfloat16* p = tile + (r0 + g) * LDS + kk * 16 + tg * 2;
+    a[kk][0] = ld_u32(p);
+    a[kk][1] = ld_u32(p + 8 * LDS);
+    a[kk][2] = ld_u32(p + 8);
+    a[kk][3] = ld_u32(p + 8 * LDS + 8);
+  }
+}
+
+// c[j] = A (16 x 64) times rows [8j, 8j + 8) of `tile` transposed: 16 x 64.
+__device__ __forceinline__ void mm_abt(float c[BT / 8][4], const uint32_t a[D / 16][4],
+                                       const __nv_bfloat16* tile, int g, int tg) {
+#pragma unroll
+  for (int j = 0; j < BT / 8; ++j) {
+    c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+    const __nv_bfloat16* bp = tile + (j * 8 + g) * LDS + tg * 2;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) mma_bf16(c[j], a[kk], ld_u32(bp + kk * 16), ld_u32(bp + kk * 16 + 8));
+  }
+}
+
+// acc += X (16 x 64, the fp32 fragments x rounded to bf16) times `tile` (64 x d).
+__device__ __forceinline__ void mm_xb(float acc[D / 8][4], const float x[BT / 8][4],
+                                      const __nv_bfloat16* tile, int g, int tg) {
+#pragma unroll
+  for (int kk = 0; kk < BT / 16; ++kk) {
+    uint32_t ax[4];
+    ax[0] = pack_bf16x2(x[2 * kk][0], x[2 * kk][1]);
+    ax[1] = pack_bf16x2(x[2 * kk][2], x[2 * kk][3]);
+    ax[2] = pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    ax[3] = pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    const __nv_bfloat16* bp = tile + (kk * 16 + tg * 2) * LDS + g;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) mma_bf16(acc[j], ax, ld_col_pair(bp + j * 8), ld_col_pair(bp + 8 * LDS + j * 8));
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int t, int h, float q_scale) {
+  __shared__ __align__(16) __nv_bfloat16 sq[BT * LDS];   // q_s tile (K tile at the start)
+  __shared__ __align__(16) __nv_bfloat16 sdo[BT * LDS];  // dO tile (V tile at the start)
+  __shared__ __align__(16) float sb[BT * SBS];           // b_2 tile, [query][key]
+  __shared__ float slse[BT];
+  __shared__ float sdelta[BT];
+
+  const int bh = blockIdx.y;
+  const int bi = bh / h;
+  const int hi = bh % h;
+  const int k0 = blockIdx.x * BT;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int wr = warp * 16;
+
+  const size_t row_stride = (size_t)h * D;
+  const size_t base = (size_t)bi * t * row_stride + (size_t)hi * D;
+  const float* bias_h = bias + (size_t)hi * t * t;
+
+  // this warp's 16 keys of K and V as A fragments, kept for the whole loop
+  uint32_t ak[D / 16][4], av[D / 16][4];
+  load_tile<false>(sq, k + base, row_stride, k0, t, 1.f);
+  load_tile<false>(sdo, v + base, row_stride, k0, t, 1.f);
+  __syncthreads();
+  load_a(ak, sq, wr, g, tg);
+  load_a(av, sdo, wr, g, tg);
+
+  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < t; q0 += BT) {
+    __syncthreads();  // every warp is done with the previous tiles
+    load_tile<true>(sq, q + base, row_stride, q0, t, q_scale);
+    load_tile<false>(sdo, dout + base, row_stride, q0, t, 1.f);
+    for (int c = threadIdx.x; c < BT * (BT / 4); c += THREADS) {
+      const int r = c / (BT / 4);
+      const int col = (c % (BT / 4)) * 4;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < t) {
+        const float* src = bias_h + (size_t)(q0 + r) * t + k0 + col;
+        // t need not be a multiple of 4, so rows are not 16-byte aligned
+        if (k0 + col + 0 < t) val.x = src[0] * LOG2E_F;
+        if (k0 + col + 1 < t) val.y = src[1] * LOG2E_F;
+        if (k0 + col + 2 < t) val.z = src[2] * LOG2E_F;
+        if (k0 + col + 3 < t) val.w = src[3] * LOG2E_F;
+      }
+      *reinterpret_cast<float4*>(sb + r * SBS + col) = val;
+    }
+    if (threadIdx.x < BT) {
+      const int r = q0 + threadIdx.x;
+      slse[threadIdx.x] = r < t ? lse[(size_t)bh * t + r] : 0.f;
+      sdelta[threadIdx.x] = r < t ? delta[(size_t)bh * t + r] : 0.f;
+    }
+    __syncthreads();
+
+    // S^T (16 keys x 64 queries) = K Q_s^T, then P^T = exp2(S^T + b_2^T - lse)
+    float s[BT / 8][4];
+    mm_abt(s, ak, sq, g, tg);
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = j * 8 + tg * 2 + (e & 1);
+        const int kr = wr + g + (e >> 1) * 8;
+        s[j][e] = (q0 + qc < t) ? exp2f(s[j][e] + sb[qc * SBS + kr] - slse[qc]) : 0.f;
+      }
+    }
+    // dV += P^T dO
+    mm_xb(acc_dv, s, sdo, g, tg);
+    // dP^T = V dO^T; dS^T = P^T (dP^T - delta) ln 2
+    float dp[BT / 8][4];
+    mm_abt(dp, av, sdo, g, tg);
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = j * 8 + tg * 2 + (e & 1);
+        s[j][e] = s[j][e] * (dp[j][e] - sdelta[qc]) * LN2_F;
+      }
+    }
+    // dK += dS^T Q_s
+    mm_xb(acc_dk, s, sq, g, tg);
+  }
+
+  const int r_lo = k0 + wr + g;
+  const int r_hi = r_lo + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + tg * 2;
+    if (r_lo < t) {
+      const size_t o = base + (size_t)r_lo * row_stride + col;
+      *reinterpret_cast<uint32_t*>(dk + o) = pack_bf16x2(acc_dk[j][0], acc_dk[j][1]);
+      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16x2(acc_dv[j][0], acc_dv[j][1]);
+    }
+    if (r_hi < t) {
+      const size_t o = base + (size_t)r_hi * row_stride + col;
+      *reinterpret_cast<uint32_t*>(dk + o) = pack_bf16x2(acc_dk[j][2], acc_dk[j][3]);
+      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16x2(acc_dv[j][2], acc_dv[j][3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ delta, float* __restrict__ dq_acc,
+    float* __restrict__ dbias, int b, int t, int h, float q_scale) {
+  __shared__ __align__(16) __nv_bfloat16 sq[BT * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sdo[BT * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sk[BT * LDS];
+  __shared__ __align__(16) __nv_bfloat16 sv[BT * LDS];
+
+  const int k0 = blockIdx.x * BT;
+  const int q0 = blockIdx.y * BT;
+  const int hi = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int wr = warp * 16;
+  const int r_lo = q0 + wr + g;
+  const int r_hi = r_lo + 8;
+  const size_t row_stride = (size_t)h * D;
+
+  // this thread's b_2 entries and their gradient, summed over the batch
+  const float* bias_h = bias + (size_t)hi * t * t;
+  float b2[BT / 8][4], db[BT / 8][4];
+#pragma unroll
+  for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = (e < 2) ? r_lo : r_hi;
+      const int col = k0 + j * 8 + tg * 2 + (e & 1);
+      b2[j][e] = (r < t && col < t) ? bias_h[(size_t)r * t + col] * LOG2E_F : 0.f;
+      db[j][e] = 0.f;
+    }
+  }
+
+  for (int bi = 0; bi < b; ++bi) {
+    const size_t base = (size_t)bi * t * row_stride + (size_t)hi * D;
+    const size_t row_lse = (size_t)(bi * h + hi) * t;
+    __syncthreads();  // every warp is done with the previous batch row's tiles
+    load_tile<true>(sq, q + base, row_stride, q0, t, q_scale);
+    load_tile<false>(sdo, dout + base, row_stride, q0, t, 1.f);
+    load_tile<false>(sk, k + base, row_stride, k0, t, 1.f);
+    load_tile<false>(sv, v + base, row_stride, k0, t, 1.f);
+    __syncthreads();
+    const float lse_r[2] = {r_lo < t ? lse[row_lse + r_lo] : 0.f,
+                            r_hi < t ? lse[row_lse + r_hi] : 0.f};
+    const float delta_r[2] = {r_lo < t ? delta[row_lse + r_lo] : 0.f,
+                              r_hi < t ? delta[row_lse + r_hi] : 0.f};
+
+    // S = Q_s K^T + b_2, P = exp2(S - lse)
+    uint32_t a[D / 16][4];
+    float s[BT / 8][4];
+    load_a(a, sq, wr, g, tg);
+    mm_abt(s, a, sk, g, tg);
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = (e < 2) ? r_lo : r_hi;
+        const int col = k0 + j * 8 + tg * 2 + (e & 1);
+        s[j][e] = (r < t && col < t) ? exp2f(s[j][e] + b2[j][e] - lse_r[e >> 1]) : 0.f;
+      }
+    }
+    // dP = dO V^T; dS = P (dP - delta) ln 2, summed into dbias
+    float dp[BT / 8][4];
+    load_a(a, sdo, wr, g, tg);
+    mm_abt(dp, a, sv, g, tg);
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = s[j][e] * (dp[j][e] - delta_r[e >> 1]) * LN2_F;
+        db[j][e] += s[j][e];
+      }
+    }
+    // dQ (this key tile's part) = dS K, scaled by the q prefold's factor
+    float acc[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    mm_xb(acc, s, sk, g, tg);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + tg * 2;
+      if (r_lo < t) {
+        float* o = dq_acc + base + (size_t)r_lo * row_stride + col;
+        atomicAdd(o, acc[j][0] * q_scale);
+        atomicAdd(o + 1, acc[j][1] * q_scale);
+      }
+      if (r_hi < t) {
+        float* o = dq_acc + base + (size_t)r_hi * row_stride + col;
+        atomicAdd(o, acc[j][2] * q_scale);
+        atomicAdd(o + 1, acc[j][3] * q_scale);
+      }
+    }
+  }
+
+  // dbias = (sum over the batch of dS) * log2(e), the bias prefold's chain rule
+  float* db_h = dbias + (size_t)hi * t * t;
+#pragma unroll
+  for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = (e < 2) ? r_lo : r_hi;
+      const int col = k0 + j * 8 + tg * 2 + (e & 1);
+      if (r < t && col < t) db_h[(size_t)r * t + col] = db[j][e] * LOG2E_F;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int vampnet_attention_bwd_dkdv(const void* q, const void* k, const void* v,
+                                          const void* bias, const void* lse, const void* dout,
+                                          const void* delta, void* dk, void* dv, int b, int t,
+                                          int h, int d, float q_scale, int device, void* stream) {
+  if (d != D || b <= 0 || t <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((t + BT - 1) / BT, b * h);
+  attention_bwd_dkdv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+      static_cast<const float*>(lse), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), t, h, q_scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vampnet_attention_bwd_dq_dbias(const void* q, const void* k, const void* v,
+                                              const void* bias, const void* lse,
+                                              const void* dout, const void* delta, void* dq_acc,
+                                              void* dbias, int b, int t, int h, int d,
+                                              float q_scale, int device, void* stream) {
+  if (d != D || b <= 0 || t <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int nt = (t + BT - 1) / BT;
+  const dim3 grid(nt, nt, h);
+  attention_bwd_dq_dbias_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+      static_cast<const float*>(lse), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(delta), static_cast<float*>(dq_acc),
+      static_cast<float*>(dbias), b, t, h, q_scale);
+  return (int)cudaGetLastError();
+}

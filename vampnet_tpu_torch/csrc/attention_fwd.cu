@@ -1,12 +1,16 @@
 // Attention forward with a head-shared additive bias, for Hopper (sm_90a).
 //
 // Port of the Pallas inference kernel `_attn_kernel_dt`
-// (vampnet_tpu/ops/flash_attention.py:120). It computes
+// (vampnet_tpu/ops/flash_attention.py:120) and, through the second entry
+// point, of the training forward `_attn_kernel_fwd_lse` (:254) and its
+// (d,t)-major twin `_attn_kernel_fwd_lse_dt` (:153). It computes
 //   out = softmax_2(q_s k^T + b_2) v
 // with q_s = bf16(q * q_scale) (q_scale = log2(e) / sqrt(d), product in fp32),
 // b_2 = bias * log2(e) rounded back to the bias dtype, keys past t excluded,
 // fp32 accumulation of both products, P rounded to bf16 for the PV product,
-// and the division by the row sum after PV.
+// and the division by the row sum after PV. The training entry point also
+// writes lse = m + log2(l), the base-2 log-sum-exp of each query row, in fp32,
+// (b*h, t), which the backward (attention_bwd.cu) recomputes P from.
 //
 // Layout: q, k, v, out are (b, t, h, d) bf16 with d = 64; bias is (h, t, t),
 // bf16 or fp32, shared by every batch row.
@@ -89,11 +93,11 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <bool BIAS_BF16>
+template <bool BIAS_BF16, bool WITH_LSE>
 __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const void* __restrict__ bias,
-    __nv_bfloat16* __restrict__ out, int t, int h, float q_scale) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int t, int h, float q_scale) {
   __shared__ __align__(16) __nv_bfloat16 sq[BQ * LDS];
   __shared__ __align__(16) __nv_bfloat16 sk[BK * LDS];
   __shared__ __align__(16) __nv_bfloat16 sv[BK * LDS];
@@ -222,6 +226,11 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
+  if (WITH_LSE && tg == 0) {
+    // m_run and l_run are the same in the four threads of a row group
+    if (r_lo < t) lse[(size_t)bh * t + r_lo] = m_run[0] + log2f(l_run[0]);
+    if (r_hi < t) lse[(size_t)bh * t + r_hi] = m_run[1] + log2f(l_run[1]);
+  }
   const float inv_lo = 1.f / l_run[0];
   const float inv_hi = 1.f / l_run[1];
   __nv_bfloat16* ob = out + base;
@@ -255,9 +264,27 @@ extern "C" int vampnet_attention_fwd(const void* q, const void* k, const void* v
   auto* oo = static_cast<__nv_bfloat16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bias_is_bf16) {
-    attention_fwd_kernel<true><<<grid, THREADS, 0, s>>>(qq, kk, vv, bias, oo, t, h, q_scale);
+    attention_fwd_kernel<true, false><<<grid, THREADS, 0, s>>>(qq, kk, vv, bias, oo, nullptr,
+                                                               t, h, q_scale);
   } else {
-    attention_fwd_kernel<false><<<grid, THREADS, 0, s>>>(qq, kk, vv, bias, oo, t, h, q_scale);
+    attention_fwd_kernel<false, false><<<grid, THREADS, 0, s>>>(qq, kk, vv, bias, oo, nullptr,
+                                                                t, h, q_scale);
   }
+  return (int)cudaGetLastError();
+}
+
+// The training forward: the same kernel with an fp32 bias (training keeps the
+// T5 table in fp32) that also writes the fp32 lse rows, (b*h, t).
+extern "C" int vampnet_attention_fwd_lse(const void* q, const void* k, const void* v,
+                                         const void* bias, void* out, void* lse, int b, int t,
+                                         int h, int d, float q_scale, int device, void* stream) {
+  if (d != D || b <= 0 || t <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((t + BQ - 1) / BQ, b * h);
+  attention_fwd_kernel<false, true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), bias, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), t, h, q_scale);
   return (int)cudaGetLastError();
 }

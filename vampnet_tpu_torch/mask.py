@@ -1,5 +1,5 @@
 """Mask algebra (counterpart of `vampnet_tpu/mask.py`), the functions the
-serving path uses. Masks are int64 tensors (batch, n_codebooks, seq) with
+serving path and the training step use. Masks are int64 tensors (batch, n_codebooks, seq) with
 1 = regenerate and 0 = keep. Randomness comes from an explicit
 `torch.Generator` on the mask's device."""
 from __future__ import annotations
@@ -18,6 +18,23 @@ def _gamma(r: torch.Tensor) -> torch.Tensor:
 
 def full_mask(x: torch.Tensor) -> torch.Tensor:
     return torch.ones_like(x, dtype=torch.int64)
+
+
+def apply_mask(x: torch.Tensor, mask: torch.Tensor, mask_token: int):
+    """Fill masked positions with `mask_token`; returns (masked_x, mask)."""
+    if mask.shape != x.shape:
+        raise ValueError(f"shape mismatch {tuple(mask.shape)} vs {tuple(x.shape)}")
+    mask = mask.to(torch.int64)
+    return torch.where(mask.bool(), torch.full_like(x, mask_token), x), mask
+
+
+def random(generator: torch.Generator, x: torch.Tensor, r) -> torch.Tensor:
+    """Bernoulli mask with per-row probability gamma(r), the training mask."""
+    r = torch.as_tensor(r, dtype=torch.float32, device=x.device)
+    if r.dim() == 0:
+        r = scalar_to_batch_array(float(r), x.shape[0], device=x.device)
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return (u < _gamma(r)[:, None, None]).to(torch.int64)
 
 
 def linear_random(generator: torch.Generator, x: torch.Tensor, r) -> torch.Tensor:

@@ -10,8 +10,10 @@ codebook-major as in the JAX package.
 
 Weights may be stored in any float dtype; every projection computes in
 `LMConfig.compute_dtype` (bf16 by default, fp32 for parity work), RMSNorm
-statistics in fp32. Not ported yet: ControlEncoder, ring attention, the
-fused FFN, int8 and dropout (this is the inference path).
+statistics in fp32. Dropout (training) sits where the JAX package has it:
+on the GEGLU hidden, and on the attention and FFN outputs before their
+residual adds. Not ported yet: ControlEncoder, ring attention, the fused
+FFN, int8 and remat.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ class LMConfig:
     latent_dim: int = 8
     embedding_dim: int = 1280
     vocab_size: int = 1024
+    dropout: float = 0.1
     lora_r: int = 0
     attention_num_buckets: int = 32
     attention_max_distance: int = 128
@@ -109,6 +112,17 @@ def position_bias_from_params(model: "VampNetLM", t_q: int,
     return table[buckets].permute(2, 0, 1).contiguous()
 
 
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax `nn.Dropout` semantics: keep each element with probability 1 - p
+    and scale the kept ones by 1 / (1 - p), in x's dtype. The draws come from
+    `generator` (on x's device); with no generator, or p = 0, it is the
+    identity (the deterministic path)."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class RMSNorm(nn.Module):
     """Scale-only T5 layer norm with fp32 statistics."""
 
@@ -155,14 +169,16 @@ class FeedForward(nn.Module):
 
     def __init__(self, d_model: int, cfg: LMConfig, device=None):
         super().__init__()
+        self.p = cfg.dropout
         self.w_1 = LoRADense(d_model, 4 * d_model, r=cfg.lora_r,
                              compute_dtype=cfg.dtype, device=device)
         self.w_2 = LoRADense(2 * d_model, d_model, r=cfg.lora_r,
                              compute_dtype=cfg.dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         p1, p2 = self.w_1(x).chunk(2, dim=-1)
-        return self.w_2(p1 * new_gelu(p2))
+        return self.w_2(dropout(p1 * new_gelu(p2), self.p, generator))
 
 
 class TransformerLayer(nn.Module):
@@ -172,15 +188,18 @@ class TransformerLayer(nn.Module):
     def __init__(self, cfg: LMConfig, has_relative_attention_bias: bool, device=None):
         super().__init__()
         d = cfg.embedding_dim
+        self.p = cfg.dropout
         self.norm_1 = RMSNorm(d, device=device)
         self.self_attn = MultiHeadRelativeAttention(
             d, cfg.n_heads, has_relative_attention_bias, cfg, device=device)
         self.norm_3 = RMSNorm(d, device=device)
         self.feed_forward = FeedForward(d, cfg, device=device)
 
-    def forward(self, x: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn(self.norm_1(x), position_bias)
-        return x + self.feed_forward(self.norm_3(x))
+    def forward(self, x: torch.Tensor, position_bias: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + dropout(self.self_attn(self.norm_1(x), position_bias), self.p, generator)
+        y = self.feed_forward(self.norm_3(x), generator)
+        return x + dropout(y, self.p, generator)
 
 
 class TransformerStack(nn.Module):
@@ -193,9 +212,10 @@ class TransformerStack(nn.Module):
             self.add_module(f"layers_{i}", TransformerLayer(cfg, i == 0, device=device))
         self.norm = RMSNorm(cfg.embedding_dim, device=device)
 
-    def forward(self, x: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, position_bias: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"layers_{i}")(x, position_bias)
+            x = getattr(self, f"layers_{i}")(x, position_bias, generator)
         return self.norm(x)
 
 
@@ -225,20 +245,24 @@ class VampNetLM(nn.Module):
         return self.config.mask_token
 
     def forward(self, latents: torch.Tensor,
-                position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                position_bias: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """latents (b, t, n_codebooks*latent_dim) -> fp32 logits
-        (b, t, n_predict_codebooks, vocab)."""
+        (b, t, n_predict_codebooks, vocab). A `generator` turns dropout on
+        (training) and its draws come from it; without one the forward is
+        deterministic."""
         cfg = self.config
         if position_bias is None:
             position_bias = position_bias_from_params(self, latents.shape[1])
         x = self.embedding(latents)
-        out = self.transformer(x, position_bias)
+        out = self.transformer(x, position_bias, generator)
         logits = self.classifier(out)  # (b, t, C*vocab), codebook-major
         b, t, _ = logits.shape
         return logits.reshape(b, t, cfg.n_predict_codebooks, cfg.vocab_size).float()
 
     def forward_codes(self, codes: torch.Tensor, codebooks: torch.Tensor,
-                      position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      position_bias: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """codes (b, n_codebooks, t) -> logits in one call (the sampler's
-        forward)."""
-        return self(self.embedding.from_codes(codes, codebooks), position_bias)
+        forward, and the training step's)."""
+        return self(self.embedding.from_codes(codes, codebooks), position_bias, generator)

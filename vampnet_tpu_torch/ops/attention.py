@@ -2,9 +2,12 @@
 `vampnet_tpu/ops/attention.py`).
 
 `dot_product_attention` dispatches like the JAX function does with
-`impl="auto"`: on the accelerator it takes the hand-written kernel
-(`ops/flash_attention.py`, the port of the Pallas `_attn_kernel_dt`), and
-elsewhere the plain version below, which has the math of the JAX XLA path.
+`impl="auto"`: on the accelerator it takes the hand-written kernels
+(`ops/flash_attention.py`): the inference kernel, the port of the Pallas
+`_attn_kernel_dt`, or, when an input requires grad, the differentiable
+`_AttentionCore` (forward-with-lse and backward kernels, the port of the
+custom VJP `_attention_core`). Elsewhere it takes the plain version below,
+which has the math of the JAX XLA path and which autograd differentiates.
 The JAX function's `mask` argument is not ported: the serving path never
 passes one.
 """
@@ -33,7 +36,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q, k, v: (b, t, h, d); bias: (h, t, t) head-shared. CUDA tensors go
-    through the attention kernel, CPU tensors through `attention_plain`."""
+    through the attention kernels (the trainable Function when grad is
+    needed), CPU tensors through `attention_plain`."""
     if q.is_cuda:
         from .flash_attention import flash_attention_with_bias
 

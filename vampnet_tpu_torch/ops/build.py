@@ -20,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -35,6 +37,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, bias, bias_is_bf16, out, b, t, h, d, q_scale, device, stream
     "vampnet_attention_fwd": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias (fp32), out, lse, b, t, h, d, q_scale, device, stream
+    "vampnet_attention_fwd_lse": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias, lse, do, delta, dk, dv, b, t, h, d, q_scale, device, stream
+    "vampnet_attention_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias, lse, do, delta, dq_acc, dbias, b, t, h, d, q_scale, device, stream
+    "vampnet_attention_bwd_dq_dbias": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _F, _I, _P),
     # logits, keys, temp, top_p, flag, tokens, probs, b, flat, vocab, step,
     # typical, typical_mass, typical_min_tokens, use_top_p, device, stream
     "vampnet_sampler": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -129,6 +139,21 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and one of `tensors` (others may be None or scalars)
+    requires grad."""
+    return torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
+                                           for x in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """A kernel launch makes no autograd graph: refuse inputs that want one,
+    rather than hand back an output that silently cuts the graph."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"the {what} kernel is forward-only and an input requires grad; "
+                           "call it under torch.no_grad() or through a differentiable path")
 
 
 def check(rc: int, what: str) -> None:

@@ -1,32 +1,56 @@
-"""Attention forward kernel for Hopper (`csrc/attention_fwd.cu`) and its
-plain PyTorch version.
+"""Attention kernels for Hopper (`csrc/attention_fwd.cu`,
+`csrc/attention_bwd.cu`), their plain PyTorch versions, and the autograd
+Function that makes attention trainable on the card.
 
-Replaces the Pallas inference kernel `_attn_kernel_dt`
-(`vampnet_tpu/ops/flash_attention.py:120`, launched by `_fwd_call_dt`
-`:185`), which every layer of every MaskGIT step runs on the TPU. Same
-function: softmax_2(q_s k^T + b_2) v, where
+All of them compute with the base-2 softmax of the Pallas kernels:
+softmax_2(q_s k^T + b_2) v, where
   * q_s = bf16(q * scale * log2(e)), the product taken in fp32;
   * b_2 = bias * log2(e), rounded back to the bias dtype (bf16 or fp32),
     the bias head-shared (h, t, t);
   * keys past t are excluded (the JAX side pads them with -1e9);
   * QK^T and PV accumulate in fp32, P enters PV as bf16, and the division by
     the row sum comes after PV.
-The layout is the port's public one, (b, t, h, d), with d = 64.
+The layout is the port's public one, (b, t, h, d), with d = 64. The kernels
+apply both prefolds themselves as they load q and the bias, so callers pass
+the raw q and bias and no prefolded copy is ever written.
 
-What bounds it on an H100: per coarse layer call (b=2, t=861, h=20) q, k, v
-and o are 4 x 2.2 MB of bf16 and the head-shared bias 29.6 MB in bf16 (59 MB
-in fp32): about 38 MB, 11 us at 3.35 TB/s. The products are 7.6 GFLOP, 8 us
-at 989 TFLOP/s. So the bias read bounds it, and the kernel reads the bias
-exactly once per batch row and never writes a (t, t) tensor.
+Inference, `attention_fwd` (through `flash_attention_with_bias` when no input
+needs a gradient): replaces `_attn_kernel_dt`
+(`vampnet_tpu/ops/flash_attention.py:120`), which every layer of every
+MaskGIT step runs on the TPU. Per coarse serving call (b=2, t=861, h=20) q,
+k, v and o are 4 x 2.2 MB of bf16 and the bias 29.6 MB in bf16: about
+38 MB, 11 us at 3.35 TB/s, against 7.6 GFLOP, 8 us at 989 TFLOP/s. So the
+bias read bounds it; the kernel reads the bias once per batch row.
 
-What the design does about it: the TPU kernel holds a whole (t_p, t_p) score
-tile per program in 100 MB of VMEM; an SM has 227 KB. So one block of four
-warps takes 64 query rows of one (batch, head) and streams keys in tiles of
-64 with an online softmax in base 2 (running max and row sum in registers).
-Products are `mma.sync` m16n8k16 bf16 with fp32 accumulators; the bias is
-read straight from device memory into the score fragments and prefolded
-there, so no prefolded copy of it is ever written. TMA, `wgmma` and
-double-buffered tiles are left for a later change.
+Training, the `_AttentionCore` Function (the counterpart of the JAX custom
+VJP `_attention_core`, `flash_attention.py:546-848`):
+  * forward `attention_fwd_lse`: replaces `_attn_kernel_fwd_lse` (`:254`) and
+    its (d,t)-major twin `_attn_kernel_fwd_lse_dt` (`:153`), whose out and
+    lse are the same. The inference kernel, with an fp32 bias, also writing
+    lse = m + log2(l) per query row in fp32, (b*h, t).
+  * backward `attention_bwd`: delta = rowsum(do * out) in torch (XLA in the
+    JAX package, `:600-602`), then `attention_bwd_dkdv` (dk, dv; replaces
+    `_attn_kernel_bwd_dkdv`, `:336`) and `attention_bwd_dq_dbias` (dq and the
+    batch-summed dbias; replaces `_attn_kernel_bwd_dq_dbias`, `:381`). The
+    pair computes the function of the one-pass `_attn_kernel_bwd_wholeseq`
+    (`:428`), which the JAX package takes at b <= 8; the split there is a
+    choice about TPU VMEM, and the card takes the pair at every batch.
+  At the coarse training shape (b=8, t=862, h=20, d=64, fp32 bias) the
+  forward moves about 130 MB if the bias is read once (39 us) against
+  15.2 GFLOP (15 us): bound by bytes. The backward needs 5 score-sized
+  products (38 GFLOP, 39 us) and moves about 243 MB (73 us): bound by bytes
+  too. The forward reads the bias once per batch row (8x at b=8); the
+  dq/dbias kernel reads it once and writes dbias once, summing over the
+  batch in registers; the dk/dv kernel reads it once per batch row, through
+  shared memory. The pair does 7 products where the bound counts 5.
+
+What the design does about the TPU's layout: the TPU kernels hold a whole
+(t_p, t_p) score tile per program in up to 100 MB of VMEM; an SM has 227 KB.
+So every kernel here works on 64 x 64 tiles with 4 warps of `mma.sync`
+m16n8k16 (bf16 in, fp32 accumulate): the forward streams keys with an online
+softmax; dk/dv walks query tiles for one key tile; dq/dbias walks the batch
+for one (query tile, key tile) and adds dq into an fp32 buffer with atomics.
+TMA, `wgmma`, double buffering and one fused backward pass are later work.
 """
 from __future__ import annotations
 
@@ -35,61 +59,157 @@ from typing import Optional
 
 import torch
 
+from . import build
+
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 HEAD_DIM = 64
+
+
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The accumulation dtype: fp32, or fp64 for fp64 inputs (gradcheck)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _prefold(q: torch.Tensor, bias: Optional[torch.Tensor]):
+    """q_s = q * scale * log2(e) and b_2 = bias * log2(e), each product in
+    (at least) fp32 and rounded back to the input's dtype."""
+    qs = (q.to(_acc(q)) * (LOG2E / math.sqrt(q.shape[-1]))).to(q.dtype)
+    b2 = None if bias is None else (bias.to(_acc(bias)) * LOG2E).to(bias.dtype)
+    return qs, b2
+
+
+def _scores(qs, k, b2):
+    """s = q_s k^T + b_2 in the accumulation dtype, (b, h, t_q, t_k)."""
+    acc = _acc(qs)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.to(acc), k.to(acc))
+    return s if b2 is None else s + b2.to(acc)[None]
 
 
 def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, step for step as the Pallas
-    path computes it (prefolds, base-2 softmax, normalise after PV)."""
-    d = q.shape[-1]
-    qs = (q.float() * (LOG2E / math.sqrt(d))).to(q.dtype).float()
-    scores = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
-    if bias is not None:
-        b2 = (bias.float() * LOG2E).to(bias.dtype).float()
-        scores = scores + b2[None]
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.exp2(scores - m)
+    """The inference kernel's function in plain PyTorch, step for step as the
+    Pallas path computes it (prefolds, base-2 softmax, normalise after PV)."""
+    return attention_fwd_lse_plain(q, k, v, bias)[0]
+
+
+def attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None):
+    """K4's function: (out (b, t, h, d) in v's dtype, lse (b*h, t) in fp32),
+    lse the base-2 log-sum-exp of each query row's scores."""
+    b, t, h, _ = q.shape
+    qs, b2 = _prefold(q, bias)
+    s = _scores(qs, k, b2)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)  # (b, h, q, 1)
-    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    return (acc / l.permute(0, 2, 1, 3)).to(v.dtype)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).to(s.dtype), v.to(s.dtype))
+    out = (acc / l.permute(0, 2, 1, 3)).to(v.dtype)
+    return out, (m + torch.log2(l)).reshape(b * h, t)
 
 
-def _check(q, k, v, bias):
+def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(do * out) in (at least) fp32, (b*h, t)."""
+    b, t, h, _ = out.shape
+    acc = _acc(out)
+    delta = (do.to(acc) * out.to(acc)).sum(dim=-1)  # (b, t, h)
+    return delta.permute(0, 2, 1).reshape(b * h, t).contiguous()
+
+
+def _probs_and_ds(q, k, v, bias, lse, do, delta):
+    """The backward's recompute: q_s, P = exp2(s - lse) and
+    dS = P (do v^T - delta) ln 2, the last two (b, h, t_q, t_k)."""
+    b, t, h, _ = q.shape
+    qs, b2 = _prefold(q, bias)
+    s = _scores(qs, k, b2)
+    p = torch.exp2(s - lse.reshape(b, h, t, 1).to(s.dtype))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(s.dtype), v.to(s.dtype))
+    ds = p * (dp - delta.reshape(b, h, t, 1).to(s.dtype)) * LN2
+    return qs, p, ds
+
+
+def attention_bwd_dkdv_plain(q, k, v, bias, lse, do, delta):
+    """K6's function: dk = dS^T q_s and dv = P^T do, with P and dS cast to
+    the input dtype for the products."""
+    qs, p, ds = _probs_and_ds(q, k, v, bias, lse, do, delta)
+    acc = p.dtype
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).to(acc), do.to(acc))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).to(acc), qs.to(acc))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_dq_dbias_plain(q, k, v, bias, lse, do, delta):
+    """K7's function with the prefolds' chain rule: dq = (dS k) * scale *
+    log2(e) and dbias = sum over the batch of dS, times log2(e), fp32 (or
+    None without a bias)."""
+    _qs, p, ds = _probs_and_ds(q, k, v, bias, lse, do, delta)
+    acc = p.dtype
+    dqs = torch.einsum("bhqk,bkhd->bqhd", ds.to(q.dtype).to(acc), k.to(acc)).to(q.dtype)
+    dq = (dqs.to(acc) * (LOG2E / math.sqrt(q.shape[-1]))).to(q.dtype)
+    dbias = None if bias is None else (ds.sum(dim=0) * LOG2E).to(bias.dtype)
+    return dq, dbias
+
+
+def attention_bwd_plain(q, k, v, bias, out, lse, do):
+    """K8's function: (dq, dk, dv, dbias) of softmax_2(q_s k^T + b_2) v at the
+    raw q and bias, from the forward's out and lse."""
+    delta = attention_delta(out, do)
+    dk, dv = attention_bwd_dkdv_plain(q, k, v, bias, lse, do, delta)
+    dq, dbias = attention_bwd_dq_dbias_plain(q, k, v, bias, lse, do, delta)
+    return dq, dk, dv, dbias
+
+
+# ------------------------------------------------------------- kernel wrappers
+
+
+def _check(q, k, v, bias, bias_dtypes=(torch.bfloat16, torch.float32)):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"the attention kernel takes bf16 q/k/v, got {q.dtype}")
+        raise ValueError(f"the attention kernels take bf16 q/k/v, got {q.dtype}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (b, t, h, d) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, t, h, d = q.shape
     if d != HEAD_DIM:
-        raise ValueError(f"the attention kernel takes d = {HEAD_DIM}, got {d}")
+        raise ValueError(f"the attention kernels take d = {HEAD_DIM}, got {d}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if bias is not None:
-        if bias.device != q.device or bias.dtype not in (torch.bfloat16, torch.float32):
-            raise ValueError("bias must be a bf16 or fp32 tensor on q's device")
+        if bias.device != q.device or bias.dtype not in bias_dtypes:
+            raise ValueError(f"bias must be a {' or '.join(map(str, bias_dtypes))} "
+                             "tensor on q's device")
         if tuple(bias.shape) != (h, t, t) or not bias.is_contiguous():
             raise ValueError(f"bias must be a contiguous ({h}, {t}, {t}) tensor, "
                              f"got {tuple(bias.shape)}")
 
 
-def flash_attention_with_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q, k, v: (b, t, h, d=64) bf16; bias: (h, t, t) bf16 or fp32 or None.
-    CPU tensors take `attention_fwd_plain`; CUDA tensors launch the kernel."""
+def _check_rows(name, x, b, t, h):
+    if x.dtype != torch.float32 or tuple(x.shape) != (b * h, t) or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous fp32 ({b * h}, {t}) tensor")
+
+
+def _bias_or_zeros(bias, q):
+    b, t, h, _ = q.shape
+    if bias is None:
+        return torch.zeros((h, t, t), dtype=torch.float32, device=q.device)
+    return bias
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The inference kernel (K1): q, k, v (b, t, h, d=64) bf16, bias (h, t, t)
+    bf16 or fp32 or None. Forward-only. CPU tensors take
+    `attention_fwd_plain`; CUDA tensors launch the kernel and count the launch
+    on `flash_attention_with_bias.launches`."""
     if q.device.type == "cpu":
         return attention_fwd_plain(q, k, v, bias)
+    build.refuse_grad("attention", q, k, v, bias)
     _check(q, k, v, bias)
-    from . import build
 
     b, t, h, d = q.shape
-    if bias is None:
-        bias = torch.zeros((h, t, t), dtype=torch.float32, device=q.device)
+    bias = _bias_or_zeros(bias, q)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = build.library().vampnet_attention_fwd(
@@ -100,6 +220,123 @@ def flash_attention_with_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(rc, "attention")
     flash_attention_with_bias.launches += 1
     return out
+
+
+def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None):
+    """The training forward (K4): (out, lse (b*h, t) fp32); the bias fp32.
+    CPU tensors take `attention_fwd_lse_plain`."""
+    if q.device.type == "cpu":
+        return attention_fwd_lse_plain(q, k, v, bias)
+    build.refuse_grad("attention forward-with-lse", q, k, v, bias)
+    _check(q, k, v, bias, (torch.float32,))
+
+    b, t, h, d = q.shape
+    bias = _bias_or_zeros(bias, q)
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    rc = build.library().vampnet_attention_fwd_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, t, h, d, LOG2E / math.sqrt(d), q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(rc, "attention forward-with-lse")
+    attention_fwd_lse.launches += 1
+    return out, lse
+
+
+def _check_bwd(q, k, v, bias, lse, do, delta):
+    build.refuse_grad("attention backward", q, k, v, bias, lse, do, delta)
+    _check(q, k, v, bias, (torch.float32,))
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("do must be a contiguous bf16 tensor of q's shape")
+    b, t, h, _ = q.shape
+    _check_rows("lse", lse, b, t, h)
+    _check_rows("delta", delta, b, t, h)
+
+
+def attention_bwd_dkdv(q, k, v, bias, lse, do, delta):
+    """The dk/dv kernel (K6): (dk, dv) in bf16. CPU tensors take
+    `attention_bwd_dkdv_plain`."""
+    if q.device.type == "cpu":
+        return attention_bwd_dkdv_plain(q, k, v, bias, lse, do, delta)
+    _check_bwd(q, k, v, bias, lse, do, delta)
+    b, t, h, d = q.shape
+    bias = _bias_or_zeros(bias, q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = build.library().vampnet_attention_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), lse.data_ptr(),
+        do.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, d,
+        LOG2E / math.sqrt(d), q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(rc, "attention backward dk/dv")
+    attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def attention_bwd_dq_dbias(q, k, v, bias, lse, do, delta):
+    """The dq/dbias kernel (K7): (dq bf16, dbias (h, t, t) fp32 or None).
+    CPU tensors take `attention_bwd_dq_dbias_plain`."""
+    if q.device.type == "cpu":
+        return attention_bwd_dq_dbias_plain(q, k, v, bias, lse, do, delta)
+    _check_bwd(q, k, v, bias, lse, do, delta)
+    b, t, h, d = q.shape
+    bias_in = _bias_or_zeros(bias, q)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dbias = torch.empty((h, t, t), dtype=torch.float32, device=q.device)
+    rc = build.library().vampnet_attention_bwd_dq_dbias(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_in.data_ptr(), lse.data_ptr(),
+        do.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dbias.data_ptr(), b, t, h, d,
+        LOG2E / math.sqrt(d), q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(rc, "attention backward dq/dbias")
+    attention_bwd_dq_dbias.launches += 1
+    return dq_acc.to(q.dtype), None if bias is None else dbias
+
+
+def attention_bwd(q, k, v, bias, out, lse, do):
+    """(dq, dk, dv, dbias): delta in torch, then the two backward kernels
+    (or, for CPU tensors, their plain versions)."""
+    delta = attention_delta(out, do)
+    dk, dv = attention_bwd_dkdv(q, k, v, bias, lse, do, delta)
+    dq, dbias = attention_bwd_dq_dbias(q, k, v, bias, lse, do, delta)
+    return dq, dk, dv, dbias
+
+
+attention_fwd_lse.launches = 0
+attention_bwd_dkdv.launches = 0
+attention_bwd_dq_dbias.launches = 0
+
+
+class _AttentionCore(torch.autograd.Function):
+    """softmax_2(q_s k^T + b_2) v, differentiable in q, k, v and the bias.
+    The forward saves (q, k, v, bias, out, lse); the kernels redo the
+    prefolds as they load q and the bias, bit for bit as the forward did, so
+    q_s and b_2 are never stored."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        out, lse = attention_fwd_lse(q, k, v, bias)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        return attention_bwd(q, k, v, bias, out, lse, do.contiguous())
+
+
+def flash_attention_with_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q, k, v: (b, t, h, d=64); bias: (h, t, t) or None. When grad mode is
+    on and an input requires grad, the call goes through `_AttentionCore`
+    (kernels on the card, plain versions on the CPU); otherwise through the
+    inference kernel `attention_fwd`."""
+    if build.needs_grad(q, k, v, bias):
+        return _AttentionCore.apply(q, k, v, bias)
+    return attention_fwd(q, k, v, bias)
 
 
 flash_attention_with_bias.launches = 0

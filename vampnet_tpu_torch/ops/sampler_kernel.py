@@ -124,6 +124,9 @@ def fused_sample_from_logits(row_keys: torch.Tensor, step: int, logits: torch.Te
         return fused_sample_plain(
             row_keys, step, logits, temperature, do_sample, top_p,
             typical_filtering, typical_mass, typical_min_tokens, use_top_p)
+    from . import build
+
+    build.refuse_grad("sampler", logits, temperature, do_sample, top_p)
     if not logits.is_cuda or row_keys.device != logits.device:
         raise ValueError("logits and row_keys must lie on one CUDA device")
     if logits.dtype != torch.float32 or logits.dim() != 3 or logits.shape[-1] != VOCAB:
@@ -134,7 +137,6 @@ def fused_sample_from_logits(row_keys: torch.Tensor, step: int, logits: torch.Te
     b, flat, v = logits.shape
     if row_keys.dtype != torch.int64 or tuple(row_keys.shape) != (b, 2):
         raise ValueError(f"row_keys must be int64 ({b}, 2)")
-    from . import build
 
     keys = row_keys.contiguous()
     temp = _row_param(temperature, b, logits.device)
