@@ -21,8 +21,17 @@ Phases, each of which must pass (no failure is caught):
   6. check the card's results against the CPU on small inputs: the coarse
      LM's logits (CPU in fp32), the codec's codes and waveform, and a small
      training step's loss and gradients (CPU in fp32);
-  7. profile one more request.
-Then it prints one JSON line with every kernel's numbers, the card line
+  7. profile one more request;
+  8. serve full-width requests with the fused-FFN option
+     (`ffn_impl="fused"`, the same weights) and check that every layer's
+     feed-forward went through the fused kernel and no w_1/w_2 product ran;
+  9. quantize the Interface to int8 (`Interface.quantize()`), serve
+     full-width requests and check the w8a8 launch counts; profile one;
+ 10. check a small int8 LM and a small fused-FFN LM on the card against the
+     CPU's plain path.
+Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernel
+against their plain versions at the serving shapes, and the attention
+kernels at head dims 32 and 128 and with a bf16 bias. Then it prints one JSON line with every kernel's numbers, the card line
 again, and `{"ok": true, "device": ...}` as the last line. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.
@@ -35,15 +44,18 @@ import time
 
 SEED = 0
 REQUESTS = 5
+OPTION_REQUESTS = 4  # per serving option (fused FFN, int8)
 TRAIN_STEPS = 5
 TRAIN_BATCH = 8
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+H100_INT8_OPS = 1979e12  # dense tensor-core int8
 # fp32 operations per logit in the sampler: 24 bisection steps x (compare,
 # masked add of p, masked add of the count) + log-softmax, entropy and
 # typicality (~10) + the temperature softmax and argmax (~6)
 SAMPLER_OPS_PER_LOGIT = 24 * 3 + 16
+SLEEP_CYCLES = 2_000_000  # about 1 ms of card time at 1.98 GHz
 
 
 def card_line() -> str:
@@ -55,7 +67,11 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps=20, flush_bytes=64 << 20):
-    """Median device time of one call, L2 flushed before each (CUDA events)."""
+    """Median device time of one call, L2 flushed before each (CUDA events).
+    The card sleeps for about a millisecond before each start event, so the
+    host has enqueued the call's launches by the time the clock starts: the
+    time is the card's alone, without the host's launch overhead (which
+    `call_ms` includes)."""
     import torch
 
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
@@ -64,6 +80,7 @@ def time_ms(fn, reps=20, flush_bytes=64 << 20):
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -75,7 +92,22 @@ def time_ms(fn, reps=20, flush_bytes=64 << 20):
     return times[len(times) // 2]
 
 
-def check_attention(b, t, h, d, bias_dtype, gen):
+def call_ms(fn, reps=50):
+    """Wall time per call over `reps` back-to-back calls that end in a
+    synchronize (L2 warm): what an eager caller pays, the host's launch
+    overhead included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def check_attention(b, t, h, d, bias_dtype, gen, timed=True):
     import torch
     import torch.nn.functional as F
 
@@ -99,6 +131,8 @@ def check_attention(b, t, h, d, bias_dtype, gen):
     tol = 2e-2 + 2e-2 * ref.float().abs()
     if bool((err > tol).any()):
         raise AssertionError(f"attention kernel disagrees: max abs err {float(err.max())}")
+    if not timed:
+        return dict(max_abs_err=float(err.max()))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     mask = bias[None]
     io_bytes = 4 * b * t * h * d * 2 + bias.numel() * bias.element_size()
@@ -118,10 +152,11 @@ def rel_err(x, ref):
     return float((x.float() - ref.float()).norm() / ref.float().norm().clamp(min=1e-30))
 
 
-def check_attention_train(b, t, h, d, gen, timed=True):
+def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None):
     """The training kernels at (b, t, h, d): forward-with-lse against its
     plain version, then the dk/dv and dq/dbias kernels against theirs on the
-    same (out, lse, do). Returns one result per kernel."""
+    same (out, lse, do). The bias is fp32 (training) or `bias_dtype`.
+    Returns one result per kernel."""
     import torch
     import torch.nn.functional as F
 
@@ -139,7 +174,7 @@ def check_attention_train(b, t, h, d, gen, timed=True):
     dev = "cuda"
     q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(4))
-    bias = torch.randn((h, t, t), generator=gen, device=dev)
+    bias = torch.randn((h, t, t), generator=gen, device=dev).to(bias_dtype or torch.float32)
     out, lse = attention_fwd_lse(q, k, v, bias)
     ref_out, ref_lse = attention_fwd_lse_plain(q, k, v, bias)
     delta = attention_delta(out, do)
@@ -153,6 +188,9 @@ def check_attention_train(b, t, h, d, gen, timed=True):
                     ("dbias", dbias)):
         if not torch.isfinite(x.float()).all():
             raise AssertionError(f"training attention kernels: non-finite {name}")
+    if dbias.dtype != bias.dtype or dq.shape != q.shape or dk.shape != k.shape:
+        raise AssertionError(f"backward kernels: dbias {dbias.dtype} for a {bias.dtype} bias, "
+                             f"dq {tuple(dq.shape)}, dk {tuple(dk.shape)}")
     out_err = (out.float() - ref_out.float()).abs()
     lse_err = float((lse - ref_lse).abs().max())
     # out: bf16, P rounded against a running max (as the inference kernel);
@@ -168,6 +206,12 @@ def check_attention_train(b, t, h, d, gen, timed=True):
     # b=8 and b=16 (dk 9.8e-5, dv 9.1e-5, dq 2.8e-3, dbias 2.9e-7), so a
     # kernel that lost its fp32 accumulation or stored dbias in bf16 fails
     limits = {"dq": 1e-2, "dk": 1e-3, "dv": 1e-3, "dbias": 1e-5}
+    if bias.dtype == torch.bfloat16:
+        # a bf16 dbias is rounded twice to bf16 after fp32 sums in another
+        # order: where a rounding flips, that element moves by an ulp
+        # (2^-8). The limit sits a few times above the sound kernels'
+        # reading on an H100 (3.7e-5 to 4.0e-5 at b=2)
+        limits["dbias"] = 2e-4
     if any(errs[n] > limits[n] for n in errs):
         raise AssertionError(f"backward kernels disagree (rel Frobenius): {errs}")
     fwd = dict(max_abs_err=float(out_err.max()), lse_max_abs_err=lse_err)
@@ -175,7 +219,7 @@ def check_attention_train(b, t, h, d, gen, timed=True):
                                 float((dv.float() - ref_dv.float()).abs().max())),
                 rel_err_dk=errs["dk"], rel_err_dv=errs["dv"])
     dqdb = dict(max_abs_err=max(float((dq.float() - ref_dq.float()).abs().max()),
-                                float((dbias - ref_dbias).abs().max())),
+                                float((dbias.float() - ref_dbias.float()).abs().max())),
                 rel_err_dq=errs["dq"], rel_err_dbias=errs["dbias"])
     if not timed:
         return {"attention_fwd_lse": fwd, "attention_bwd_dkdv": dkdv,
@@ -290,6 +334,139 @@ def check_sampler(b, flat, gen):
         bound_by="bytes" if io_bytes / H100_BYTES_PER_S >= ops / H100_FP32_FLOPS else "operations",
     )
     return result
+
+
+def kernel_registers():
+    """{kernel: (registers, spill store bytes, spill load bytes)} from
+    ptxas's report in the build logs; a kernel is named by its function name
+    and its mangled template arguments, as in `attention_bwd_dkdv_kernel
+    ILi128ELb0E` (D = 128, fp32 bias)."""
+    import re
+
+    from vampnet_tpu_torch.ops import build
+
+    def short(mangled):
+        # a source name is <length><name>; a hash's digits may run into the length
+        for m in re.finditer(r"\d+", mangled):
+            for i in range(m.start(), m.end()):
+                word = mangled[m.end():m.end() + int(mangled[i:m.end()])]
+                if word.endswith("_kernel"):
+                    rest = mangled[m.end() + len(word):]
+                    return f"{word} {rest.split('Ev')[0][:-1]}" if rest[:1] == "I" else word
+        return mangled
+
+    out, name = {}, None
+    for line in build.build_logs().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = short(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, [0, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def registers_of(fragment):
+    """The ptxas readings of the kernels whose mangled name holds `fragment`."""
+    return {k: v for k, v in kernel_registers().items() if fragment in k}
+
+
+def check_w8a8(m, k, n, gen, timed=True):
+    """The w8a8 kernel at (m, k) x (n, k): bit for bit against its plain
+    version; times against `torch._int_mm` (the integer product alone) and a
+    bf16 matmul of the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from vampnet_tpu_torch.ops.int8_matmul import quantize_rows, w8a8_matmul, w8a8_matmul_plain
+
+    dev = "cuda"
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    w_scale = torch.rand((n,), generator=gen, device=dev) * 1e-3
+    out = w8a8_matmul(x, w_q, w_scale, out_dtype=torch.bfloat16)
+    ref = w8a8_matmul_plain(x, w_q, w_scale, out_dtype=torch.bfloat16)
+    out32 = w8a8_matmul(x, w_q, w_scale, out_dtype=torch.float32)
+    ref32 = w8a8_matmul_plain(x, w_q, w_scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    err32 = float((out32 - ref32).abs().max())
+    # exact: int32 accumulation and the same IEEE steps in the same order
+    if not (torch.equal(out, ref) and torch.equal(out32, ref32)):
+        raise AssertionError(f"w8a8 kernel at m={m} k={k} n={n} differs from its plain "
+                             f"version: max abs err {err} (bf16 out), {err32} (fp32 out)")
+    if not timed:
+        return dict(max_abs_err=err)
+    io_bytes = m * k * 2 + n * k + n * 4 + m * n * 2
+    ops = 2 * m * k * n
+    tb, tf = io_bytes / H100_BYTES_PER_S, ops / H100_INT8_OPS
+    xq = quantize_rows(x)[0].contiguous()
+    w_bf16 = torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+    return dict(
+        max_abs_err=err, max_abs_err_fp32_out=err32,
+        ms=time_ms(lambda: w8a8_matmul(x, w_q, w_scale)),
+        call_ms=call_ms(lambda: w8a8_matmul(x, w_q, w_scale)),
+        plain_ms=time_ms(lambda: w8a8_matmul_plain(x, w_q, w_scale), reps=5),
+        library_ms=time_ms(lambda: torch._int_mm(xq, w_q.t())),
+        library_note="torch._int_mm (cuBLASLt s8 GEMM): the integer product alone",
+        bf16_matmul_ms=time_ms(lambda: F.linear(x, w_bf16)),
+        bound_ms=1e3 * max(tb, tf), bound_by="bytes" if tb >= tf else "operations",
+    )
+
+
+def check_ffn(m, d, gen, timed=True):
+    """The fused-FFN kernel at (m, d) against its plain version; timed against
+    the unfused chain of the serving path (RMSNorm, linear, GELU, linear,
+    add; no single PyTorch call computes the function)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vampnet_tpu_torch.modules.activations import new_gelu
+    from vampnet_tpu_torch.ops.ffn_kernel import fused_geglu_ffn, fused_geglu_ffn_plain
+
+    dev = "cuda"
+    x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+    nw = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    w1 = (torch.randn((4 * d, d), generator=gen, device=dev) / d ** 0.5).to(torch.bfloat16)
+    w2 = (torch.randn((d, 2 * d), generator=gen, device=dev) / (2 * d) ** 0.5).to(torch.bfloat16)
+    out = fused_geglu_ffn(x, nw, w1, w2)
+    ref = fused_geglu_ffn_plain(x, nw, w1, w2)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError("fused FFN kernel produced non-finite values")
+    err = (out.float() - ref.float()).abs()
+    # bf16 output; the kernel and the plain version round y and g to bf16 at
+    # the same places, but sum in other orders, so a rounded y or g can move
+    # by one bf16 ulp and the output with it
+    tol = 2e-2 + 2e-2 * ref.float().abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"fused FFN kernel disagrees at m={m}: max abs err "
+                             f"{float(err.max())}")
+    if not timed:
+        return dict(max_abs_err=float(err.max()))
+    nwb = nw.to(torch.bfloat16)
+
+    def unfused():
+        xf = x.float()
+        y = (nwb.float() * (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6)))
+        p1, p2 = F.linear(y.to(x.dtype), w1).chunk(2, dim=-1)
+        return x + F.linear(p1 * new_gelu(p2), w2)
+
+    io_bytes = 2 * m * d * 2 + d * 4 + 4 * d * d * 2 + 2 * d * d * 2
+    ops = 2 * m * d * 6 * d
+    tb, tf = io_bytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
+    return dict(
+        max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
+        ms=time_ms(lambda: fused_geglu_ffn(x, nw, w1, w2)),
+        call_ms=call_ms(lambda: fused_geglu_ffn(x, nw, w1, w2)),
+        plain_ms=time_ms(lambda: fused_geglu_ffn_plain(x, nw, w1, w2), reps=5),
+        library_ms=None, unfused_chain_ms=time_ms(unfused),
+        unfused_note="the serving path's unfused chain: RMSNorm, F.linear, GELU, F.linear, add",
+        bound_ms=1e3 * max(tb, tf), bound_by="bytes" if tb >= tf else "operations",
+    )
 
 
 def random_state(module, gen, fan_in=False):
@@ -526,6 +703,105 @@ def check_train_against_cpu(gen, device="cuda"):
                 train_grad_worst_rel_err=errs[worst])
 
 
+def serve(label, iface, sig, kw, n, counters, want, n_samples):
+    """`n` full-width requests through `iface`. Every counter in `counters`
+    is set to 0 before the first and read after each; each request must make
+    `want[name]` launches of each. Returns (summary, launches over the run)."""
+    import numpy as np
+    import torch
+
+    for c in counters.values():
+        c.launches = 0
+    walls, peaks = [], []
+    for i in range(n):
+        before = {name: c.launches for name, c in counters.items()}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = iface.vamp_e2e(sig, seed=SEED + i, **kw)
+        walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        made = {name: c.launches - before[name] for name, c in counters.items()}
+        print(f"{label} request {i}: wall {walls[-1] * 1e3:.1f} ms, peak {peaks[-1]:.2f} GiB, "
+              f"launches {made}, out {out.samples.shape}")
+        if out.samples.shape != (2, 1, n_samples):
+            raise AssertionError(f"output shape {out.samples.shape} != (2, 1, {n_samples})")
+        if not np.isfinite(out.samples).all():
+            raise AssertionError("non-finite output samples")
+        if made != want:
+            raise AssertionError(f"{label}: launches per request {made}, want {want}")
+    launches = {name: c.launches for name, c in counters.items()}
+    steady = sorted(walls[1:])  # the first request pays cuBLAS/cuDNN start-up
+    quart = [steady[round(q * (len(steady) - 1))] * 1e3 for q in (0.25, 0.5, 0.75)]
+    summary = dict(wall_ms=[round(w * 1e3, 1) for w in walls], q1_ms=quart[0],
+                   median_ms_after_first=quart[1], q3_ms=quart[2], peak_gib=max(peaks),
+                   launches_per_request=want)
+    print(f"{label} requests: " + json.dumps(summary))
+    return summary, launches
+
+
+def check_options_against_cpu(gen):
+    """A small int8 LM and a small fused-FFN LM: the card (bf16 compute,
+    through the w8a8 and fused-FFN kernels) against the CPU (fp32 compute,
+    the plain versions), from one set of weights and one input."""
+    import dataclasses
+
+    import torch
+
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.modules.quantize import quantize_lm_state_dict
+    from vampnet_tpu_torch.ops.ffn_kernel import fused_geglu_ffn
+    from vampnet_tpu_torch.ops.int8_matmul import w8a8_matmul
+
+    base = LMConfig(n_heads=2, n_layers=2, n_codebooks=4, embedding_dim=128, dropout=0.0)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    lm32 = VampNetLM(dataclasses.replace(base, compute_dtype="float32"), device="cpu")
+    state = random_state(lm32, cpu_gen, fan_in=True)
+    codes = torch.randint(0, base.vocab_size + 1, (2, base.n_codebooks, 200), generator=cpu_gen)
+    cbs = torch.randn((base.n_codebooks, base.vocab_size, base.latent_dim), generator=cpu_gen)
+    result = {}
+    for label, kw, counter, want in (
+        ("int8", dict(quantization="int8"), w8a8_matmul, 6 * base.n_layers),
+        ("fused_ffn", dict(ffn_impl="fused"), fused_geglu_ffn, base.n_layers),
+    ):
+        sd = quantize_lm_state_dict(state) if label == "int8" else state
+        cfg = dataclasses.replace(base, **kw)
+        cpu_lm = VampNetLM(dataclasses.replace(cfg, compute_dtype="float32"), device="cpu")
+        cpu_lm.load_state_dict(sd)
+        lm = VampNetLM(cfg, device="meta").to_empty(device="cuda")
+        lm.load_state_dict(sd)
+        n0 = counter.launches
+        with torch.inference_mode():
+            got = lm.forward_codes(codes.cuda(), cbs.cuda()).cpu()
+            ref = cpu_lm.forward_codes(codes, cbs)
+        if counter.launches - n0 != want:
+            raise AssertionError(f"the small {label} LM made {counter.launches - n0} "
+                                 f"launches, want {want}")
+        err = float((got - ref).abs().max() / ref.abs().max())
+        # bf16 activations through 2 layers against fp32; the int8 codes of
+        # an activation within rounding of a boundary may differ by one
+        if not err < 5e-2:
+            raise AssertionError(f"small {label} LM logits on the card vs CPU fp32: rel err {err}")
+        result[f"{label}_logits_rel_err"] = err
+    return result
+
+
+def fused_interface(iface):
+    """An Interface whose LMs take `ffn_impl="fused"` and share `iface`'s
+    weight tensors (no copy), so that its peak memory compares with the
+    served one's and dropping it frees nothing that `iface` holds."""
+    import dataclasses
+
+    from vampnet_tpu_torch.interface import Interface
+    from vampnet_tpu_torch.modules import VampNetLM
+
+    lms = []
+    for served in (iface.coarse, iface.c2f):
+        lm = VampNetLM(dataclasses.replace(served.config, ffn_impl="fused"), device="meta")
+        lm.load_state_dict(served.state_dict(), assign=True)
+        lms.append(lm.requires_grad_(False).eval())
+    return Interface(iface.codec, *lms)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -542,7 +818,9 @@ def main() -> int:
     from vampnet_tpu_torch.codec import LAC, CodecConfig
     from vampnet_tpu_torch.interface import Interface
     from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.ops.ffn_kernel import fused_geglu_ffn
     from vampnet_tpu_torch.ops.flash_attention import flash_attention_with_bias
+    from vampnet_tpu_torch.ops.int8_matmul import w8a8_matmul
     from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits
 
     t_start = time.perf_counter()
@@ -555,15 +833,18 @@ def main() -> int:
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {build.library_path().name}")
     for line in build.build_logs().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "error" in line:
             print(f"build: {line.strip()}")
+    for name, (regs, spill_st, spill_ld) in kernel_registers().items():
+        print(f"build: {regs:3d} registers, spills {spill_st}/{spill_ld} B  {name}")
 
     # ---- 3. kernels against their plain versions ----
     codec_cfg, coarse_cfg, c2f_cfg = CodecConfig(), LMConfig.coarse(), LMConfig.c2f()
     hop, sr = codec_cfg.hop_length, codec_cfg.sample_rate
     t_coarse, t_c2f = math.ceil(10 * sr / hop), math.ceil(3 * sr / hop)
     n_c2f_rows = 2 * math.ceil(t_coarse / t_c2f)
-    d_head = coarse_cfg.embedding_dim // coarse_cfg.n_heads
+    d_model = coarse_cfg.embedding_dim
+    d_head = d_model // coarse_cfg.n_heads
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     checks = {
@@ -573,16 +854,33 @@ def main() -> int:
             n_c2f_rows, t_c2f, c2f_cfg.n_heads, d_head, torch.bfloat16, gen),
         ("attention_fwd", "coarse_fp32_bias"): lambda: check_attention(
             2, t_coarse, coarse_cfg.n_heads, d_head, torch.float32, gen),
+        # head dims the JAX wrapper pads to 128 lanes: d_model kept, heads varied
+        ("attention_fwd", "d32"): lambda: check_attention(
+            2, t_coarse, d_model // 32, 32, torch.bfloat16, gen, timed=False),
+        ("attention_fwd", "d128"): lambda: check_attention(
+            2, t_coarse, d_model // 128, 128, torch.bfloat16, gen, timed=False),
         ("sampler", "coarse"): lambda: check_sampler(
             2, t_coarse * coarse_cfg.n_predict_codebooks, gen),
         ("sampler", "c2f"): lambda: check_sampler(
             n_c2f_rows, t_c2f * c2f_cfg.n_predict_codebooks, gen),
     }
-    results = {"attention_fwd": {}, "sampler": {}}
+    # the w8a8 kernel at every projection shape of both LMs (m = b t)
+    m_rows = {"coarse": 2 * t_coarse, "c2f": n_c2f_rows * t_c2f}
+    proj = {"qkvfc": (d_model, d_model), "w_1": (d_model, 4 * d_model),
+            "w_2": (2 * d_model, d_model)}
+    for lm_name, m in m_rows.items():
+        for site, (k, n) in proj.items():
+            checks[("w8a8_matmul", f"{lm_name}_{site}")] = (
+                lambda m=m, k=k, n=n: check_w8a8(m, k, n, gen))
+        checks[("fused_geglu_ffn", lm_name)] = lambda m=m: check_ffn(m, d_model, gen)
+    results = {"attention_fwd": {}, "sampler": {}, "w8a8_matmul": {}, "fused_geglu_ffn": {}}
     for (name, shape), check in checks.items():
         results[name][shape] = check()
         print(f"kernel {name}[{shape}]: " + json.dumps(results[name][shape]))
     attn, samp = results["attention_fwd"], results["sampler"]
+    w8a8_regs = registers_of("w8a8_gemm_kernel")
+    w8a8_regs.update(registers_of("row_quant_kernel"))
+    ffn_regs = registers_of("geglu_ffn_kernel")
     # the training kernels at the coarse training shape, and once at b=16,
     # where the JAX package takes its split backward pair (K6/K7)
     train_k = check_attention_train(TRAIN_BATCH, t_coarse, coarse_cfg.n_heads, d_head, gen)
@@ -590,6 +888,15 @@ def main() -> int:
     for name in train_k:
         print(f"kernel {name}[train b={TRAIN_BATCH}]: " + json.dumps(train_k[name]))
         print(f"kernel {name}[train b=16]: " + json.dumps(train_k16[name]))
+    # the training kernels at the other head dims and with the serving LMs'
+    # bf16 bias
+    for label, kw in (("d32", dict(h=d_model // 32, d=32)),
+                      ("d128", dict(h=d_model // 128, d=128)),
+                      ("bf16_bias", dict(h=coarse_cfg.n_heads, d=d_head,
+                                         bias_dtype=torch.bfloat16))):
+        res = check_attention_train(2, t_coarse, gen=gen, timed=False, **kw)
+        for name in res:
+            print(f"kernel {name}[train b=2 {label}]: " + json.dumps(res[name]))
 
     # ---- 4. full-width requests ----
     t0 = time.perf_counter()
@@ -604,37 +911,15 @@ def main() -> int:
     sig = bench_signal(sr, 10.0)
     kw = dict(batch_size=2, periodic_prompt=7, upper_codebook_mask=3, _sampling_steps=12,
               c2f_steps=2, transfer_dtype="int16")
-    want_attn = 12 * coarse_cfg.n_layers + 2 * c2f_cfg.n_layers
-    want_samp = 12 + 2
     n_samples = t_coarse * hop
-    flash_attention_with_bias.launches = 0
-    fused_sample_from_logits.launches = 0
-    walls = []
-    for i in range(REQUESTS):
-        a0, s0 = flash_attention_with_bias.launches, fused_sample_from_logits.launches
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = iface.vamp_e2e(sig, seed=SEED + i, **kw)
-        wall = time.perf_counter() - t0
-        walls.append(wall)
-        da = flash_attention_with_bias.launches - a0
-        ds = fused_sample_from_logits.launches - s0
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"request {i}: wall {wall * 1e3:.1f} ms, peak {peak:.2f} GiB, "
-              f"attention launches {da}, sampler launches {ds}, out {out.samples.shape}")
-        if out.samples.shape != (2, 1, n_samples):
-            raise AssertionError(f"output shape {out.samples.shape} != (2, 1, {n_samples})")
-        if not np.isfinite(out.samples).all():
-            raise AssertionError("non-finite output samples")
-        if da != want_attn or ds != want_samp:
-            raise AssertionError(f"launches per request: attention {da} (want {want_attn}), "
-                                 f"sampler {ds} (want {want_samp})")
-    launches = {"attention_fwd": flash_attention_with_bias.launches,
-                "sampler": fused_sample_from_logits.launches}
-    steady = sorted(walls[1:])  # the first request pays cuBLAS/cuDNN start-up
-    quart = [steady[round(q * (len(steady) - 1))] * 1e3 for q in (0.25, 0.5, 0.75)]
-    print(f"requests: {REQUESTS}, wall ms " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
-          + f"; after the first: q1 {quart[0]:.1f}, median {quart[1]:.1f}, q3 {quart[2]:.1f}")
+    n_layer_calls = 12 * coarse_cfg.n_layers + 2 * c2f_cfg.n_layers  # 272
+    counters = {"attention_fwd": flash_attention_with_bias, "sampler": fused_sample_from_logits,
+                "w8a8_matmul": w8a8_matmul, "fused_geglu_ffn": fused_geglu_ffn}
+    want = {"attention_fwd": n_layer_calls, "sampler": 12 + 2, "w8a8_matmul": 0,
+            "fused_geglu_ffn": 0}
+    served, base_launches = serve("bf16", iface, sig, kw, REQUESTS, counters, want, n_samples)
+    launches = {"attention_fwd": base_launches["attention_fwd"],
+                "sampler": base_launches["sampler"]}
 
     # ---- 5. full-width training steps ----
     train, train_launches = train_full_width(iface.codec, iface.codebooks, gen)
@@ -647,13 +932,48 @@ def main() -> int:
     # ---- 7. where a request's time goes ----
     profile("request", lambda: iface.vamp_e2e(sig, seed=99, **kw))
 
-    def entry(name, source, replaces, res):
-        main_shape = res["coarse"]
+    # ---- 8. the fused-FFN option: same weights, ffn_impl="fused" ----
+    fused_iface = fused_interface(iface)
+    ffn_calls = [0]
+    hooks = [m.register_forward_pre_hook(lambda *_: ffn_calls.__setitem__(0, ffn_calls[0] + 1))
+             for lm in (fused_iface.coarse, fused_iface.c2f)
+             for name, m in lm.named_modules()
+             if name.endswith(("feed_forward.w_1", "feed_forward.w_2"))]
+    want_fused = dict(want, fused_geglu_ffn=n_layer_calls)
+    served_fused, fused_launches = serve("fused-ffn", fused_iface, sig, kw, OPTION_REQUESTS,
+                                         counters, want_fused, n_samples)
+    for h in hooks:
+        h.remove()
+    if ffn_calls[0] or len(hooks) != 2 * (coarse_cfg.n_layers + c2f_cfg.n_layers):
+        raise AssertionError(f"the fused path ran {ffn_calls[0]} w_1/w_2 products")
+    launches["fused_geglu_ffn"] = fused_launches["fused_geglu_ffn"]
+    del fused_iface
+
+    # ---- 9. the int8 option: Interface.quantize() on the served weights ----
+    t0 = time.perf_counter()
+    iface.quantize()
+    torch.cuda.synchronize()
+    print(f"setup: quantized in {time.perf_counter() - t0:.1f} s")
+    scales = [b for lm in (iface.coarse, iface.c2f) for n_, b in lm.named_buffers()
+              if n_.endswith("w_scale")]
+    if len(scales) != 6 * (coarse_cfg.n_layers + c2f_cfg.n_layers) or \
+            any(s.dtype != torch.float32 for s in scales):
+        raise AssertionError("quantize() left a projection unquantized or a scale not fp32")
+    want_int8 = dict(want, w8a8_matmul=6 * n_layer_calls)
+    served_int8, int8_launches = serve("int8", iface, sig, kw, OPTION_REQUESTS, counters,
+                                       want_int8, n_samples)
+    launches["w8a8_matmul"] = int8_launches["w8a8_matmul"]
+    profile("int8 request", lambda: iface.vamp_e2e(sig, seed=98, **kw))
+
+    # ---- 10. the two options on the card against the CPU ----
+    print("cpu check: " + json.dumps(check_options_against_cpu(gen)))
+
+    def entry(name, source, replaces, res, main="coarse"):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], **{k: main_shape[k] for k in keys},
-            c2f={k: res["c2f"][k] for k in keys},
+            launches=launches[name], **{k: res[main][k] for k in keys},
+            **{shape: {k: v for k, v in r.items()} for shape, r in res.items() if shape != main},
         )
 
     kernels = [
@@ -680,6 +1000,18 @@ def main() -> int:
             library_note=res.get("library_note"),
             b16={k: v for k, v in train_k16[name].items()},
         ))
+    kernels.append(dict(
+        entry("w8a8_matmul", "vampnet_tpu_torch/csrc/int8_matmul.cu",
+              "vampnet_tpu/ops/int8_matmul.py:36", results["w8a8_matmul"], main="coarse_w_1"),
+        main_shape=f"coarse w_1: m={m_rows['coarse']} k={d_model} n={4 * d_model}",
+        launches_per_request=6 * n_layer_calls, registers=w8a8_regs))
+    kernels.append(dict(
+        entry("fused_geglu_ffn", "vampnet_tpu_torch/csrc/ffn.cu",
+              "vampnet_tpu/ops/ffn_kernel.py:44", results["fused_geglu_ffn"]),
+        main_shape=f"coarse: m={m_rows['coarse']} d={d_model}",
+        launches_per_request=n_layer_calls, registers=ffn_regs))
+    print("serve summary: " + json.dumps({"bf16": served, "fused_ffn": served_fused,
+                                          "int8": served_int8}))
     print("train summary: " + json.dumps(train))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

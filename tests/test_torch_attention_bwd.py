@@ -20,11 +20,16 @@ from vampnet_tpu_torch.ops import build
 from vampnet_tpu_torch.ops.flash_attention import (
     LOG2E,
     attention_bwd_dkdv,
+    attention_bwd_dkdv_plain,
     attention_bwd_dq_dbias,
+    attention_bwd_dq_dbias_plain,
     attention_bwd_plain,
+    attention_delta,
     attention_fwd_lse,
     attention_fwd_lse_plain,
     flash_attention_with_bias,
+    kernel_head_dim,
+    pad_head,
 )
 
 H, D = 2, 64
@@ -171,3 +176,65 @@ def test_forward_only_kernels_refuse_inputs_that_require_grad():
     with torch.no_grad():
         build.refuse_grad("attention", x)
     build.refuse_grad("sampler", torch.zeros(3), 1.0, None)
+
+
+def test_function_grads_match_jax_custom_vjp_bf16_bias():
+    # the serving LMs store the T5 table in bf16: q, k, v and the bias bf16,
+    # as on the JAX route that keeps a bf16 bias in bf16 (K4 + K8)
+    q, k, v, bias, w = _inputs(2, 77, seed=30)
+    jx = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v, bias)]
+
+    def loss(q, k, v, bias):
+        out = jfa.flash_attention_with_bias(q, k, v, bias=bias, interpret=True)
+        return (out.astype(jnp.float32) * jnp.asarray(w)).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(*jx)
+    leaves = [_t(np.asarray(x.astype(jnp.float32)), torch.bfloat16).requires_grad_()
+              for x in jx]
+    out = flash_attention_with_bias(*leaves)
+    assert type(out.grad_fn).__name__ == "_AttentionCoreBackward"
+    (out.float() * _t(w)).sum().backward()
+    for name, g, ref in zip(("dq", "dk", "dv", "dbias"), leaves, want):
+        assert g.grad.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16, name
+        ref = np.asarray(ref.astype(jnp.float32))
+        # the same roundings in the same places (P, dS, the outputs and
+        # dbias's two bf16 casts); fp32 sums in other orders move a bf16
+        # result by an ulp (2^-8 relative) here and there
+        np.testing.assert_allclose(g.grad.float().numpy(), ref, rtol=2 ** -6,
+                                   atol=2 ** -6 * float(np.abs(ref).max()), err_msg=name)
+
+
+@pytest.mark.parametrize("d", [32, 96])
+def test_padded_head_dim_gives_the_unpadded_result(d):
+    # the CUDA wrappers zero-pad d to 64 or 128 and keep the scale of d
+    q, k, v, bias, w = (_t(x) for x in _inputs(2, 45, seed=d, d=d))
+    dk = kernel_head_dim(d)
+    assert dk == (64 if d <= 64 else 128)
+    pq, pk, pv, pw = (pad_head(x, dk) for x in (q, k, v, w))
+    scale = LOG2E / d ** 0.5
+    out, lse = attention_fwd_lse_plain(q, k, v, bias)
+    pout, plse = attention_fwd_lse_plain(pq, pk, pv, bias, q_scale=scale)
+    delta = attention_delta(out, w)
+    grads = attention_bwd_dkdv_plain(q, k, v, bias, lse, w, delta) + \
+        attention_bwd_dq_dbias_plain(q, k, v, bias, lse, w, delta)
+    pdelta = attention_delta(pout, pw)
+    pgrads = attention_bwd_dkdv_plain(pq, pk, pv, bias, plse, pw, pdelta, q_scale=scale) + \
+        attention_bwd_dq_dbias_plain(pq, pk, pv, bias, plse, pw, pdelta, q_scale=scale)
+    assert not pout[..., d:].any() and torch.equal(pdelta, delta)
+    # zero columns add exact zeros to every score and product: fp32
+    # summation order only
+    tol = dict(rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(pout[..., :d], out, **tol)
+    torch.testing.assert_close(plse, lse, **tol)
+    for name, g, pg in zip(("dk", "dv", "dq", "dbias"), grads, pgrads):
+        if name != "dbias":
+            assert not pg[..., d:].any(), name
+            pg = pg[..., :d]
+        torch.testing.assert_close(pg, g, **tol, msg=name)
+
+
+def test_head_dims_past_128_are_refused():
+    assert kernel_head_dim(1) == 64 and kernel_head_dim(64) == 64
+    assert kernel_head_dim(65) == 128 and kernel_head_dim(128) == 128
+    with pytest.raises(ValueError, match="128"):
+        kernel_head_dim(129)

@@ -85,3 +85,20 @@ def test_forward_codes_bf16_close_to_fp32():
 def test_lora_rank_above_zero_is_not_ported():
     with pytest.raises(NotImplementedError):
         LoRADense(4, 4, r=8, device="cpu")
+
+
+def test_w_ks_takes_no_lora_rank(monkeypatch):
+    # the JAX layer builds the key projection with dense("w_ks", 0) whatever
+    # lora_r is; record the rank each projection site asks for
+    class Recorder(torch.nn.Module):
+        def __init__(self, in_features, out_features, r=0, **kw):
+            super().__init__()
+            self.r = r
+
+    monkeypatch.setattr(ttr, "LoRADense", Recorder)
+    _, _, lms = configs()
+    cfg = lms["coarse"][1].__class__(**{**lms["coarse"][1].__dict__, "lora_r": 8})
+    attn = ttr.MultiHeadRelativeAttention(cfg.embedding_dim, cfg.n_heads, True, cfg,
+                                          device="meta")
+    assert {n: getattr(attn, n).r for n in ("w_qs", "w_ks", "w_vs", "fc")} == \
+        {"w_qs": 8, "w_ks": 0, "w_vs": 8, "fc": 8}

@@ -13,9 +13,13 @@
 // where the last factors are the prefolds' chain rule. P and dS enter their
 // products as bf16, all products accumulate in fp32 (mma.sync m16n8k16).
 //
-// Layout: q, k, v, do, dk, dv are (b, t, h, d) bf16 with d = 64; bias and
-// dbias are (h, t, t) fp32; lse and delta are (b*h, t) fp32; dq_acc is
-// (b, t, h, d) fp32, zeroed by the caller, and summed into with atomics.
+// Layout: q, k, v, do, dk, dv are (b, t, h, D) bf16, the kernels instantiated
+// for D = 64 and D = 128 (the wrapper zero-pads a smaller head dim); bias and
+// dbias are (h, t, t), both bf16 or both fp32; lse and delta are (b*h, t)
+// fp32; dq_acc is (b, t, h, D) fp32, zeroed by the caller, and summed into
+// with atomics. Tiles sit in dynamic shared memory (dk/dv 36 KB at D = 64,
+// 52 KB at 128; dq/dbias 36 KB and 68 KB). At D = 128 the dk/dv kernel's
+// K, V fragments and dK, dV accumulators alone take 192 registers a thread.
 //
 // Design (see ops/flash_attention.py for the bound):
 //  * dkdv: one block of 4 warps per (64-key tile, batch*head); each warp owns
@@ -33,66 +37,22 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-constexpr int D = 64;        // head dim
+using namespace vampnet;
+
 constexpr int BT = 64;       // rows per tile, queries and keys alike (4 warps x 16)
-constexpr int LDS = D + 8;   // shared-memory row stride (bf16), padded against bank conflicts
 constexpr int SBS = BT + 4;  // bias tile row stride (fp32): conflict-free transposed reads
 constexpr int THREADS = 128;
-constexpr float LOG2E_F = 1.4426950408889634f;
 constexpr float LN2_F = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 from two rows of one column, packed low = first.
-__device__ __forceinline__ uint32_t ld_col_pair(const __nv_bfloat16* p) {
-  uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  uint32_t hi = *reinterpret_cast<const uint16_t*>(p + LDS);
-  return lo | (hi << 16);
-}
-
-// c += a * b, m16n8k16, A row-major bf16, B column-major bf16, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copies rows [row0, row0 + 64) of one (batch, head) slice into shared memory,
-// zero-filling rows at or past t. With PREFOLD the values are multiplied by
-// `scale` in fp32 and rounded back to bf16 (the forward's q prefold).
-template <bool PREFOLD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          size_t row_stride, int row0, int t, float scale) {
-  for (int c = threadIdx.x; c < BT * (D / 8); c += THREADS) {
-    const int r = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < t) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + col);
-      if (PREFOLD) {
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDS + col) = val;
-  }
-}
-
-// A fragments (16 rows x 64) of rows [r0, r0 + 16) of a shared tile.
+// A fragments (16 rows x D) of rows [r0, r0 + 16) of a shared tile.
+template <int D>
 __device__ __forceinline__ void load_a(uint32_t a[D / 16][4], const __nv_bfloat16* tile, int r0,
                                        int g, int tg) {
+  constexpr int LDS = D + 8;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const __nv_bfloat16* p = tile + (r0 + g) * LDS + kk * 16 + tg * 2;
@@ -103,9 +63,11 @@ __device__ __forceinline__ void load_a(uint32_t a[D / 16][4], const __nv_bfloat1
   }
 }
 
-// c[j] = A (16 x 64) times rows [8j, 8j + 8) of `tile` transposed: 16 x 64.
+// c[j] = A (16 x D) times rows [8j, 8j + 8) of `tile` transposed: 16 x 64.
+template <int D>
 __device__ __forceinline__ void mm_abt(float c[BT / 8][4], const uint32_t a[D / 16][4],
                                        const __nv_bfloat16* tile, int g, int tg) {
+  constexpr int LDS = D + 8;
 #pragma unroll
   for (int j = 0; j < BT / 8; ++j) {
     c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
@@ -115,9 +77,11 @@ __device__ __forceinline__ void mm_abt(float c[BT / 8][4], const uint32_t a[D / 
   }
 }
 
-// acc += X (16 x 64, the fp32 fragments x rounded to bf16) times `tile` (64 x d).
+// acc += X (16 x 64, the fp32 fragments x rounded to bf16) times `tile` (64 x D).
+template <int D>
 __device__ __forceinline__ void mm_xb(float acc[D / 8][4], const float x[BT / 8][4],
                                       const __nv_bfloat16* tile, int g, int tg) {
+  constexpr int LDS = D + 8;
 #pragma unroll
   for (int kk = 0; kk < BT / 16; ++kk) {
     uint32_t ax[4];
@@ -127,21 +91,24 @@ __device__ __forceinline__ void mm_xb(float acc[D / 8][4], const float x[BT / 8]
     ax[3] = pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3]);
     const __nv_bfloat16* bp = tile + (kk * 16 + tg * 2) * LDS + g;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) mma_bf16(acc[j], ax, ld_col_pair(bp + j * 8), ld_col_pair(bp + 8 * LDS + j * 8));
+    for (int j = 0; j < D / 8; ++j) mma_bf16(acc[j], ax, ld_col_pair<LDS>(bp + j * 8), ld_col_pair<LDS>(bp + 8 * LDS + j * 8));
   }
 }
 
+template <int D, bool BIAS_BF16>
 __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const __nv_bfloat16* __restrict__ v, const void* __restrict__ bias,
     const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dv, int t, int h, float q_scale) {
-  __shared__ __align__(16) __nv_bfloat16 sq[BT * LDS];   // q_s tile (K tile at the start)
-  __shared__ __align__(16) __nv_bfloat16 sdo[BT * LDS];  // dO tile (V tile at the start)
-  __shared__ __align__(16) float sb[BT * SBS];           // b_2 tile, [query][key]
-  __shared__ float slse[BT];
-  __shared__ float sdelta[BT];
+  constexpr int LDS = D + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);  // q_s tile (K tile at the start)
+  __nv_bfloat16* sdo = sq + BT * LDS;                          // dO tile (V tile at the start)
+  float* sb = reinterpret_cast<float*>(sdo + BT * LDS);        // b_2 tile, [query][key]
+  float* slse = sb + BT * SBS;
+  float* sdelta = slse + BT;
 
   const int bh = blockIdx.y;
   const int bi = bh / h;
@@ -155,15 +122,15 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
 
   const size_t row_stride = (size_t)h * D;
   const size_t base = (size_t)bi * t * row_stride + (size_t)hi * D;
-  const float* bias_h = bias + (size_t)hi * t * t;
+  const size_t bias_h = (size_t)hi * t * t;
 
   // this warp's 16 keys of K and V as A fragments, kept for the whole loop
   uint32_t ak[D / 16][4], av[D / 16][4];
-  load_tile<false>(sq, k + base, row_stride, k0, t, 1.f);
-  load_tile<false>(sdo, v + base, row_stride, k0, t, 1.f);
+  load_tile<D, false>(sq, k + base, row_stride, k0, t, 1.f, THREADS);
+  load_tile<D, false>(sdo, v + base, row_stride, k0, t, 1.f, THREADS);
   __syncthreads();
-  load_a(ak, sq, wr, g, tg);
-  load_a(av, sdo, wr, g, tg);
+  load_a<D>(ak, sq, wr, g, tg);
+  load_a<D>(av, sdo, wr, g, tg);
 
   float acc_dk[D / 8][4], acc_dv[D / 8][4];
 #pragma unroll
@@ -174,19 +141,19 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
 
   for (int q0 = 0; q0 < t; q0 += BT) {
     __syncthreads();  // every warp is done with the previous tiles
-    load_tile<true>(sq, q + base, row_stride, q0, t, q_scale);
-    load_tile<false>(sdo, dout + base, row_stride, q0, t, 1.f);
+    load_tile<D, true>(sq, q + base, row_stride, q0, t, q_scale, THREADS);
+    load_tile<D, false>(sdo, dout + base, row_stride, q0, t, 1.f, THREADS);
     for (int c = threadIdx.x; c < BT * (BT / 4); c += THREADS) {
       const int r = c / (BT / 4);
       const int col = (c % (BT / 4)) * 4;
       float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
       if (q0 + r < t) {
-        const float* src = bias_h + (size_t)(q0 + r) * t + k0 + col;
+        const size_t src = bias_h + (size_t)(q0 + r) * t + k0 + col;
         // t need not be a multiple of 4, so rows are not 16-byte aligned
-        if (k0 + col + 0 < t) val.x = src[0] * LOG2E_F;
-        if (k0 + col + 1 < t) val.y = src[1] * LOG2E_F;
-        if (k0 + col + 2 < t) val.z = src[2] * LOG2E_F;
-        if (k0 + col + 3 < t) val.w = src[3] * LOG2E_F;
+        if (k0 + col + 0 < t) val.x = load_bias<BIAS_BF16>(bias, src + 0);
+        if (k0 + col + 1 < t) val.y = load_bias<BIAS_BF16>(bias, src + 1);
+        if (k0 + col + 2 < t) val.z = load_bias<BIAS_BF16>(bias, src + 2);
+        if (k0 + col + 3 < t) val.w = load_bias<BIAS_BF16>(bias, src + 3);
       }
       *reinterpret_cast<float4*>(sb + r * SBS + col) = val;
     }
@@ -199,7 +166,7 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
 
     // S^T (16 keys x 64 queries) = K Q_s^T, then P^T = exp2(S^T + b_2^T - lse)
     float s[BT / 8][4];
-    mm_abt(s, ak, sq, g, tg);
+    mm_abt<D>(s, ak, sq, g, tg);
 #pragma unroll
     for (int j = 0; j < BT / 8; ++j) {
 #pragma unroll
@@ -210,10 +177,10 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
       }
     }
     // dV += P^T dO
-    mm_xb(acc_dv, s, sdo, g, tg);
+    mm_xb<D>(acc_dv, s, sdo, g, tg);
     // dP^T = V dO^T; dS^T = P^T (dP^T - delta) ln 2
     float dp[BT / 8][4];
-    mm_abt(dp, av, sdo, g, tg);
+    mm_abt<D>(dp, av, sdo, g, tg);
 #pragma unroll
     for (int j = 0; j < BT / 8; ++j) {
 #pragma unroll
@@ -223,7 +190,7 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
       }
     }
     // dK += dS^T Q_s
-    mm_xb(acc_dk, s, sq, g, tg);
+    mm_xb<D>(acc_dk, s, sq, g, tg);
   }
 
   const int r_lo = k0 + wr + g;
@@ -244,16 +211,19 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
   }
 }
 
+template <int D, bool BIAS_BF16>
 __global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const __nv_bfloat16* __restrict__ v, const void* __restrict__ bias,
     const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ delta, float* __restrict__ dq_acc,
-    float* __restrict__ dbias, int b, int t, int h, float q_scale) {
-  __shared__ __align__(16) __nv_bfloat16 sq[BT * LDS];
-  __shared__ __align__(16) __nv_bfloat16 sdo[BT * LDS];
-  __shared__ __align__(16) __nv_bfloat16 sk[BT * LDS];
-  __shared__ __align__(16) __nv_bfloat16 sv[BT * LDS];
+    void* __restrict__ dbias, int b, int t, int h, float q_scale) {
+  constexpr int LDS = D + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sdo = sq + BT * LDS;
+  __nv_bfloat16* sk = sdo + BT * LDS;
+  __nv_bfloat16* sv = sk + BT * LDS;
 
   const int k0 = blockIdx.x * BT;
   const int q0 = blockIdx.y * BT;
@@ -268,7 +238,7 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
   const size_t row_stride = (size_t)h * D;
 
   // this thread's b_2 entries and their gradient, summed over the batch
-  const float* bias_h = bias + (size_t)hi * t * t;
+  const size_t bias_h = (size_t)hi * t * t;
   float b2[BT / 8][4], db[BT / 8][4];
 #pragma unroll
   for (int j = 0; j < BT / 8; ++j) {
@@ -276,7 +246,7 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
     for (int e = 0; e < 4; ++e) {
       const int r = (e < 2) ? r_lo : r_hi;
       const int col = k0 + j * 8 + tg * 2 + (e & 1);
-      b2[j][e] = (r < t && col < t) ? bias_h[(size_t)r * t + col] * LOG2E_F : 0.f;
+      b2[j][e] = (r < t && col < t) ? load_bias<BIAS_BF16>(bias, bias_h + (size_t)r * t + col) : 0.f;
       db[j][e] = 0.f;
     }
   }
@@ -285,10 +255,10 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
     const size_t base = (size_t)bi * t * row_stride + (size_t)hi * D;
     const size_t row_lse = (size_t)(bi * h + hi) * t;
     __syncthreads();  // every warp is done with the previous batch row's tiles
-    load_tile<true>(sq, q + base, row_stride, q0, t, q_scale);
-    load_tile<false>(sdo, dout + base, row_stride, q0, t, 1.f);
-    load_tile<false>(sk, k + base, row_stride, k0, t, 1.f);
-    load_tile<false>(sv, v + base, row_stride, k0, t, 1.f);
+    load_tile<D, true>(sq, q + base, row_stride, q0, t, q_scale, THREADS);
+    load_tile<D, false>(sdo, dout + base, row_stride, q0, t, 1.f, THREADS);
+    load_tile<D, false>(sk, k + base, row_stride, k0, t, 1.f, THREADS);
+    load_tile<D, false>(sv, v + base, row_stride, k0, t, 1.f, THREADS);
     __syncthreads();
     const float lse_r[2] = {r_lo < t ? lse[row_lse + r_lo] : 0.f,
                             r_hi < t ? lse[row_lse + r_hi] : 0.f};
@@ -298,8 +268,8 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
     // S = Q_s K^T + b_2, P = exp2(S - lse)
     uint32_t a[D / 16][4];
     float s[BT / 8][4];
-    load_a(a, sq, wr, g, tg);
-    mm_abt(s, a, sk, g, tg);
+    load_a<D>(a, sq, wr, g, tg);
+    mm_abt<D>(s, a, sk, g, tg);
 #pragma unroll
     for (int j = 0; j < BT / 8; ++j) {
 #pragma unroll
@@ -311,8 +281,8 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
     }
     // dP = dO V^T; dS = P (dP - delta) ln 2, summed into dbias
     float dp[BT / 8][4];
-    load_a(a, sdo, wr, g, tg);
-    mm_abt(dp, a, sv, g, tg);
+    load_a<D>(a, sdo, wr, g, tg);
+    mm_abt<D>(dp, a, sv, g, tg);
 #pragma unroll
     for (int j = 0; j < BT / 8; ++j) {
 #pragma unroll
@@ -325,7 +295,7 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
     float acc[D / 8][4];
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    mm_xb(acc, s, sk, g, tg);
+    mm_xb<D>(acc, s, sk, g, tg);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = j * 8 + tg * 2;
@@ -342,53 +312,98 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
     }
   }
 
-  // dbias = (sum over the batch of dS) * log2(e), the bias prefold's chain rule
-  float* db_h = dbias + (size_t)hi * t * t;
+  // dbias = (sum over the batch of dS) * log2(e), the bias prefold's chain
+  // rule. A bf16 bias takes the JAX VJP's two roundings: the prefolded
+  // bias's gradient is cast to bf16, then scaled in fp32 and cast again.
 #pragma unroll
   for (int j = 0; j < BT / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = (e < 2) ? r_lo : r_hi;
       const int col = k0 + j * 8 + tg * 2 + (e & 1);
-      if (r < t && col < t) db_h[(size_t)r * t + col] = db[j][e] * LOG2E_F;
+      if (r < t && col < t) {
+        const size_t o = bias_h + (size_t)r * t + col;
+        if (BIAS_BF16) {
+          const float g2 = __bfloat162float(__float2bfloat16_rn(db[j][e]));
+          static_cast<__nv_bfloat16*>(dbias)[o] = __float2bfloat16_rn(g2 * LOG2E_F);
+        } else {
+          static_cast<float*>(dbias)[o] = db[j][e] * LOG2E_F;
+        }
+      }
     }
   }
 }
 
+template <int D, bool BIAS_BF16>
+cudaError_t launch_dkdv(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v,
+                        const void* bias, const void* lse, const void* dout, const void* delta,
+                        void* dk, void* dv, int t, int h, float q_scale) {
+  const size_t smem = (size_t)2 * BT * (D + 8) * 2 + (size_t)BT * SBS * 4 + 2 * BT * 4;
+  return launch(attention_bwd_dkdv_kernel<D, BIAS_BF16>, grid, THREADS, smem, s,
+                static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                static_cast<const __nv_bfloat16*>(v), bias, static_cast<const float*>(lse),
+                static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(delta),
+                static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), t, h, q_scale);
+}
+
+template <int D, bool BIAS_BF16>
+cudaError_t launch_dq_dbias(dim3 grid, cudaStream_t s, const void* q, const void* k,
+                            const void* v, const void* bias, const void* lse, const void* dout,
+                            const void* delta, void* dq_acc, void* dbias, int b, int t, int h,
+                            float q_scale) {
+  const size_t smem = (size_t)4 * BT * (D + 8) * 2;
+  return launch(attention_bwd_dq_dbias_kernel<D, BIAS_BF16>, grid, THREADS, smem, s,
+                static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                static_cast<const __nv_bfloat16*>(v), bias, static_cast<const float*>(lse),
+                static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(delta),
+                static_cast<float*>(dq_acc), dbias, b, t, h, q_scale);
+}
+
 }  // namespace
 
+// Both entry points take a head dim d of 64 or 128 (the wrapper zero-pads
+// q, k, v and do up to one of them and passes q_scale for the unpadded d) and
+// a bf16 or fp32 bias; dbias is written in the bias's dtype.
 extern "C" int vampnet_attention_bwd_dkdv(const void* q, const void* k, const void* v,
-                                          const void* bias, const void* lse, const void* dout,
-                                          const void* delta, void* dk, void* dv, int b, int t,
-                                          int h, int d, float q_scale, int device, void* stream) {
-  if (d != D || b <= 0 || t <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+                                          const void* bias, int bias_is_bf16, const void* lse,
+                                          const void* dout, const void* delta, void* dk, void* dv,
+                                          int b, int t, int h, int d, float q_scale, int device,
+                                          void* stream) {
+  if (b <= 0 || t <= 0 || h <= 0 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t + BT - 1) / BT, b * h);
-  attention_bwd_dkdv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<const float*>(lse), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), t, h, q_scale);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) {
+    err = bias_is_bf16 ? launch_dkdv<64, true>(grid, s, q, k, v, bias, lse, dout, delta, dk, dv, t, h, q_scale)
+                       : launch_dkdv<64, false>(grid, s, q, k, v, bias, lse, dout, delta, dk, dv, t, h, q_scale);
+  } else {
+    err = bias_is_bf16 ? launch_dkdv<128, true>(grid, s, q, k, v, bias, lse, dout, delta, dk, dv, t, h, q_scale)
+                       : launch_dkdv<128, false>(grid, s, q, k, v, bias, lse, dout, delta, dk, dv, t, h, q_scale);
+  }
+  return (int)err;
 }
 
 extern "C" int vampnet_attention_bwd_dq_dbias(const void* q, const void* k, const void* v,
-                                              const void* bias, const void* lse,
-                                              const void* dout, const void* delta, void* dq_acc,
-                                              void* dbias, int b, int t, int h, int d,
-                                              float q_scale, int device, void* stream) {
-  if (d != D || b <= 0 || t <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+                                              const void* bias, int bias_is_bf16,
+                                              const void* lse, const void* dout,
+                                              const void* delta, void* dq_acc, void* dbias, int b,
+                                              int t, int h, int d, float q_scale, int device,
+                                              void* stream) {
+  if (b <= 0 || t <= 0 || h <= 0 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int nt = (t + BT - 1) / BT;
   const dim3 grid(nt, nt, h);
-  attention_bwd_dq_dbias_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<const float*>(lse), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(delta), static_cast<float*>(dq_acc),
-      static_cast<float*>(dbias), b, t, h, q_scale);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) {
+    err = bias_is_bf16
+              ? launch_dq_dbias<64, true>(grid, s, q, k, v, bias, lse, dout, delta, dq_acc, dbias, b, t, h, q_scale)
+              : launch_dq_dbias<64, false>(grid, s, q, k, v, bias, lse, dout, delta, dq_acc, dbias, b, t, h, q_scale);
+  } else {
+    err = bias_is_bf16
+              ? launch_dq_dbias<128, true>(grid, s, q, k, v, bias, lse, dout, delta, dq_acc, dbias, b, t, h, q_scale)
+              : launch_dq_dbias<128, false>(grid, s, q, k, v, bias, lse, dout, delta, dq_acc, dbias, b, t, h, q_scale);
+  }
+  return (int)err;
 }

@@ -12,8 +12,10 @@
 // writes lse = m + log2(l), the base-2 log-sum-exp of each query row, in fp32,
 // (b*h, t), which the backward (attention_bwd.cu) recomputes P from.
 //
-// Layout: q, k, v, out are (b, t, h, d) bf16 with d = 64; bias is (h, t, t),
-// bf16 or fp32, shared by every batch row.
+// Layout: q, k, v, out are (b, t, h, D) bf16, the kernel instantiated for
+// D = 64 and D = 128 (the wrapper zero-pads a smaller head dim up to one of
+// them); bias is (h, t, t), bf16 or fp32, shared by every batch row. The
+// three tiles sit in dynamic shared memory: 27 KB at D = 64, 51 KB at 128.
 //
 // Design: one block of 4 warps per (64-row query tile, batch*head). Each warp
 // owns 16 query rows. Keys stream through shared memory in tiles of 64; the
@@ -27,80 +29,26 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-constexpr int D = 64;        // head dim
+using namespace vampnet;
+
 constexpr int BQ = 64;       // query rows per block (4 warps x 16)
 constexpr int BK = 64;       // keys per tile
-constexpr int LDS = D + 8;   // shared-memory row stride (bf16), padded against bank conflicts
 constexpr int THREADS = 128;
-constexpr float LOG2E_F = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 from two rows of one column, packed low = first.
-__device__ __forceinline__ uint32_t ld_col_pair(const __nv_bfloat16* p) {
-  uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  uint32_t hi = *reinterpret_cast<const uint16_t*>(p + LDS);
-  return lo | (hi << 16);
-}
-
-// c += a * b, m16n8k16, A row-major bf16, B column-major bf16, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <bool BIAS_BF16>
-__device__ __forceinline__ float load_bias(const void* bias, size_t idx) {
-  if (BIAS_BF16) {
-    float b = __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[idx]);
-    return __bfloat162float(__float2bfloat16_rn(b * LOG2E_F));
-  } else {
-    return static_cast<const float*>(bias)[idx] * LOG2E_F;
-  }
-}
-
-// Copies rows [row0, row0 + 64) of one (batch, head) slice into shared memory,
-// zero-filling rows at or past t. With PREFOLD the values are multiplied by
-// `scale` in fp32 and rounded back to bf16.
-template <bool PREFOLD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          size_t row_stride, int row0, int t, float scale) {
-  for (int c = threadIdx.x; c < 64 * (D / 8); c += THREADS) {
-    const int r = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < t) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + col);
-      if (PREFOLD) {
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDS + col) = val;
-  }
-}
-
-template <bool BIAS_BF16, bool WITH_LSE>
+template <int D, bool BIAS_BF16, bool WITH_LSE>
 __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const void* __restrict__ bias,
     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int t, int h, float q_scale) {
-  __shared__ __align__(16) __nv_bfloat16 sq[BQ * LDS];
-  __shared__ __align__(16) __nv_bfloat16 sk[BK * LDS];
-  __shared__ __align__(16) __nv_bfloat16 sv[BK * LDS];
+  constexpr int LDS = D + 8;  // shared-memory row stride (bf16), padded against bank conflicts
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sk = sq + BQ * LDS;
+  __nv_bfloat16* sv = sk + BK * LDS;
 
   const int bh = blockIdx.y;
   const int bi = bh / h;
@@ -114,7 +62,7 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
   const size_t row_stride = (size_t)h * D;
   const size_t base = (size_t)bi * t * row_stride + (size_t)hi * D;
 
-  load_tile<true>(sq, q + base, row_stride, q0, t, q_scale);
+  load_tile<D, true>(sq, q + base, row_stride, q0, t, q_scale, THREADS);
   __syncthreads();
 
   // this warp's 16 query rows as A fragments, one per 16-wide slice of d
@@ -143,8 +91,8 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
 
   for (int key0 = 0; key0 < t; key0 += BK) {
     __syncthreads();  // every warp is done with the previous tile
-    load_tile<false>(sk, k + base, row_stride, key0, t, 1.f);
-    load_tile<false>(sv, v + base, row_stride, key0, t, 1.f);
+    load_tile<D, false>(sk, k + base, row_stride, key0, t, 1.f, THREADS);
+    load_tile<D, false>(sv, v + base, row_stride, key0, t, 1.f, THREADS);
     __syncthreads();
 
     // S = Q_s K^T for 16 rows x 64 keys: 8 n-tiles of 8 keys
@@ -216,7 +164,7 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
       const __nv_bfloat16* vp = sv + (kk * 16 + tg * 2) * LDS + g;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        mma_bf16(o[j], ap, ld_col_pair(vp + j * 8), ld_col_pair(vp + 8 * LDS + j * 8));
+        mma_bf16(o[j], ap, ld_col_pair<LDS>(vp + j * 8), ld_col_pair<LDS>(vp + 8 * LDS + j * 8));
       }
     }
   }
@@ -248,13 +196,10 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int vampnet_attention_fwd(const void* q, const void* k, const void* v,
-                                     const void* bias, int bias_is_bf16, void* out,
-                                     int b, int t, int h, int d, float q_scale,
-                                     int device, void* stream) {
-  if (d != D || b <= 0 || t <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+template <bool BIAS_BF16, bool WITH_LSE>
+int launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
+               void* lse, int b, int t, int h, int d, float q_scale, int device, void* stream) {
+  if (b <= 0 || t <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t + BQ - 1) / BQ, b * h);
@@ -262,29 +207,44 @@ extern "C" int vampnet_attention_fwd(const void* q, const void* k, const void* v
   const auto* kk = static_cast<const __nv_bfloat16*>(k);
   const auto* vv = static_cast<const __nv_bfloat16*>(v);
   auto* oo = static_cast<__nv_bfloat16*>(out);
+  auto* ll = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bias_is_bf16) {
-    attention_fwd_kernel<true, false><<<grid, THREADS, 0, s>>>(qq, kk, vv, bias, oo, nullptr,
-                                                               t, h, q_scale);
-  } else {
-    attention_fwd_kernel<false, false><<<grid, THREADS, 0, s>>>(qq, kk, vv, bias, oo, nullptr,
-                                                                t, h, q_scale);
+  if (d == 64) {
+    return (int)launch(attention_fwd_kernel<64, BIAS_BF16, WITH_LSE>, grid, THREADS,
+                       (size_t)(BQ + 2 * BK) * (64 + 8) * 2, s, qq, kk, vv, bias, oo, ll, t, h,
+                       q_scale);
   }
-  return (int)cudaGetLastError();
+  if (d == 128) {
+    return (int)launch(attention_fwd_kernel<128, BIAS_BF16, WITH_LSE>, grid, THREADS,
+                       (size_t)(BQ + 2 * BK) * (128 + 8) * 2, s, qq, kk, vv, bias, oo, ll, t, h,
+                       q_scale);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// The training forward: the same kernel with an fp32 bias (training keeps the
-// T5 table in fp32) that also writes the fp32 lse rows, (b*h, t).
+}  // namespace
+
+// The kernels take a head dim d of 64 or 128; the wrapper zero-pads q, k, v
+// up to one of them and passes q_scale for the unpadded d.
+extern "C" int vampnet_attention_fwd(const void* q, const void* k, const void* v,
+                                     const void* bias, int bias_is_bf16, void* out,
+                                     int b, int t, int h, int d, float q_scale,
+                                     int device, void* stream) {
+  return bias_is_bf16
+             ? launch_fwd<true, false>(q, k, v, bias, out, nullptr, b, t, h, d, q_scale, device,
+                                       stream)
+             : launch_fwd<false, false>(q, k, v, bias, out, nullptr, b, t, h, d, q_scale, device,
+                                        stream);
+}
+
+// The training forward: the same kernel, also writing the fp32 lse rows,
+// (b*h, t). The bias is bf16 (the serving LMs' bf16 T5 table) or fp32.
 extern "C" int vampnet_attention_fwd_lse(const void* q, const void* k, const void* v,
-                                         const void* bias, void* out, void* lse, int b, int t,
-                                         int h, int d, float q_scale, int device, void* stream) {
-  if (d != D || b <= 0 || t <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((t + BQ - 1) / BQ, b * h);
-  attention_fwd_kernel<false, true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), bias, static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), t, h, q_scale);
-  return (int)cudaGetLastError();
+                                         const void* bias, int bias_is_bf16, void* out, void* lse,
+                                         int b, int t, int h, int d, float q_scale, int device,
+                                         void* stream) {
+  return bias_is_bf16
+             ? launch_fwd<true, true>(q, k, v, bias, out, lse, b, t, h, d, q_scale, device, stream)
+             : launch_fwd<false, true>(q, k, v, bias, out, lse, b, t, h, d, q_scale, device,
+                                       stream);
 }

@@ -1,5 +1,5 @@
 """Serving entry point (counterpart of `vampnet_tpu/interface.py`):
-`Interface.from_modules`, `s2t`, `_preprocess` and `vamp_e2e`.
+`Interface.from_modules`, `quantize`, `s2t`, `_preprocess` and `vamp_e2e`.
 
 `vamp_e2e` runs one vamp request: host preprocess -> codec encode -> mask
 build -> coarse MaskGIT over chunk rows -> c2f MaskGIT -> codec decode. It
@@ -11,6 +11,7 @@ agree token for token only where no random draw decides anything.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Mapping, Optional
 
@@ -23,6 +24,7 @@ from . import mask as pmask
 from .audio import AudioSignal
 from .codec import LAC, CodecConfig
 from .modules import LMConfig, VampNetLM
+from .modules.quantize import quantize_lm_state_dict
 from .modules.transformer import position_bias_from_params
 from .sampling.generate import generate
 from .util import resolve_device
@@ -31,8 +33,12 @@ from .util import resolve_device
 def _load(module: nn.Module, state: Mapping, device: torch.device,
           dtype: torch.dtype) -> nn.Module:
     """Materialise a module built on the meta device on `device`, with float
-    parameters in `dtype`, from a state dict of tensors or numpy arrays."""
-    module = module.to_empty(device=device).to(dtype)
+    parameters in `dtype`, from a state dict of tensors or numpy arrays.
+    Buffers keep their dtype: an int8 LM's fp32 weight scales stay fp32, as
+    the JAX package keeps them."""
+    module = module.to_empty(device=device)
+    for p in module.parameters():
+        p.data = p.data.to(dtype)
     state = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
              for k, v in state.items()}
     module.load_state_dict(state, strict=True)
@@ -70,6 +76,29 @@ class Interface:
             c2f = _load(VampNetLM(c2f_cfg, device="meta"), c2f_params, device,
                         torch.bfloat16)
         return cls(codec, coarse, c2f, coarse_chunk_size_s, coarse2fine_chunk_size_s)
+
+    def quantize(self) -> "Interface":
+        """Post-training int8 (w8a8) on both LMs, an opt-in for serving: the
+        attention and FFN projections switch to int8 weights with per-channel
+        fp32 scales and per-row activation quantization (`w8a8_matmul`); the
+        embeddings and the classifier stay bf16. Tokens may differ slightly
+        from the bf16 path. The weights are quantized from the bf16-stored
+        ones, as the JAX package does, and the bf16 kernels they replace are
+        dropped. Calling it again does nothing."""
+        if self.coarse.config.quantization == "int8":
+            return self
+        for name in ("coarse", "c2f"):
+            lm = getattr(self, name)
+            if lm is None:
+                continue
+            cfg = dataclasses.replace(lm.config, quantization="int8")
+            state = quantize_lm_state_dict(lm.state_dict())
+            setattr(self, name, None)
+            del lm
+            setattr(self, name, _load(VampNetLM(cfg, device="meta"), state, self.device,
+                                      torch.bfloat16))
+            del state
+        return self
 
     def s2t(self, seconds: float) -> int:
         """seconds -> tokens."""

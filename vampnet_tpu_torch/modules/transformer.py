@@ -12,8 +12,13 @@ Weights may be stored in any float dtype; every projection computes in
 `LMConfig.compute_dtype` (bf16 by default, fp32 for parity work), RMSNorm
 statistics in fp32. Dropout (training) sits where the JAX package has it:
 on the GEGLU hidden, and on the attention and FFN outputs before their
-residual adds. Not ported yet: ControlEncoder, ring attention, the fused
-FFN, int8 and remat.
+residual adds.
+
+Two serving options, as in the JAX package: `quantization="int8"` runs every
+attention and FFN projection as a w8a8 matmul (`LoRADense(quantize=True)`),
+and `ffn_impl="fused"` runs each layer's RMSNorm, GEGLU feed-forward and
+residual add as one kernel (`ops/ffn_kernel.py`). Not ported yet:
+ControlEncoder, ring attention and remat.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.ffn_kernel import fused_geglu_ffn
 from .activations import new_gelu
 from .layers import CodebookEmbedding, Dense
 from .lora import LoRADense
@@ -45,6 +51,8 @@ class LMConfig:
     lora_r: int = 0
     attention_num_buckets: int = 32
     attention_max_distance: int = 128
+    ffn_impl: str = "auto"  # auto | xla | fused; "auto" is the unfused path, as in JAX
+    quantization: Optional[str] = None  # None | "int8" (w8a8 projections)
     compute_dtype: str = "bfloat16"
 
     @property
@@ -145,9 +153,11 @@ class MultiHeadRelativeAttention(nn.Module):
                  cfg: LMConfig, device=None):
         super().__init__()
         self.n_head = n_head
-        dense = lambda: LoRADense(d_model, d_model, r=cfg.lora_r,
-                                  compute_dtype=cfg.dtype, device=device)
-        self.w_qs, self.w_ks, self.w_vs, self.fc = dense(), dense(), dense(), dense()
+        dense = lambda r: LoRADense(d_model, d_model, r=r, compute_dtype=cfg.dtype,
+                                    quantize=cfg.quantization == "int8", device=device)
+        # the key projection never takes adapters, as in the JAX package
+        self.w_qs, self.w_ks = dense(cfg.lora_r), dense(0)
+        self.w_vs, self.fc = dense(cfg.lora_r), dense(cfg.lora_r)
         if has_relative_attention_bias:
             self.relative_attention_bias = nn.Parameter(
                 torch.empty(cfg.attention_num_buckets, n_head, device=device)
@@ -170,10 +180,11 @@ class FeedForward(nn.Module):
     def __init__(self, d_model: int, cfg: LMConfig, device=None):
         super().__init__()
         self.p = cfg.dropout
+        quantize = cfg.quantization == "int8"
         self.w_1 = LoRADense(d_model, 4 * d_model, r=cfg.lora_r,
-                             compute_dtype=cfg.dtype, device=device)
+                             compute_dtype=cfg.dtype, quantize=quantize, device=device)
         self.w_2 = LoRADense(2 * d_model, d_model, r=cfg.lora_r,
-                             compute_dtype=cfg.dtype, device=device)
+                             compute_dtype=cfg.dtype, quantize=quantize, device=device)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -183,10 +194,20 @@ class FeedForward(nn.Module):
 
 class TransformerLayer(nn.Module):
     """Pre-norm block: RMSNorm -> self-attention -> residual,
-    RMSNorm -> FFN -> residual."""
+    RMSNorm -> FFN -> residual. With `ffn_impl="fused"` the second half is
+    one call of `fused_geglu_ffn` on the pre-norm x, fed `norm_3.weight` and
+    the FFN's weights; the state dict is the unfused path's."""
 
     def __init__(self, cfg: LMConfig, has_relative_attention_bias: bool, device=None):
         super().__init__()
+        if cfg.ffn_impl not in ("auto", "xla", "fused"):
+            raise ValueError(f"ffn_impl must be auto, xla or fused, got {cfg.ffn_impl!r}")
+        if cfg.quantization not in (None, "int8"):
+            raise ValueError(f"quantization must be None or 'int8', got {cfg.quantization!r}")
+        self.fused_ffn = cfg.ffn_impl == "fused"
+        if self.fused_ffn and (cfg.lora_r != 0 or cfg.quantization is not None):
+            # the fused kernel has no LoRA or int8 path; never fall back quietly
+            raise ValueError("ffn_impl='fused' needs no dropout generator, lora_r=0, no int8")
         d = cfg.embedding_dim
         self.p = cfg.dropout
         self.norm_1 = RMSNorm(d, device=device)
@@ -198,6 +219,12 @@ class TransformerLayer(nn.Module):
     def forward(self, x: torch.Tensor, position_bias: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x + dropout(self.self_attn(self.norm_1(x), position_bias), self.p, generator)
+        if self.fused_ffn:
+            if generator is not None:
+                raise ValueError("ffn_impl='fused' needs no dropout generator, lora_r=0, no int8")
+            ff = self.feed_forward
+            return fused_geglu_ffn(x.to(ff.w_1.compute_dtype), self.norm_3.weight,
+                                   ff.w_1.weight, ff.w_2.weight, self.norm_3.eps)
         y = self.feed_forward(self.norm_3(x), generator)
         return x + dropout(y, self.p, generator)
 

@@ -1,7 +1,7 @@
 """Builds the port's CUDA kernels and loads them with `ctypes`.
 
-Every `csrc/*.cu` file is compiled by its own `nvcc` process (all started
-together) for `sm_90a`, and the objects are linked into one shared library
+Every `csrc/*.cu` file (with the `csrc/*.cuh` headers it includes) is
+compiled by its own `nvcc` process (all started together) for `sm_90a`, and the objects are linked into one shared library
 with a plain C interface. Nothing includes PyTorch's headers, so a cold build
 takes seconds. The library's name carries a hash of the sources and flags:
 it is rebuilt only when one of them changes. The build directory
@@ -37,14 +37,21 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, bias, bias_is_bf16, out, b, t, h, d, q_scale, device, stream
     "vampnet_attention_fwd": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, bias (fp32), out, lse, b, t, h, d, q_scale, device, stream
-    "vampnet_attention_fwd_lse": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, bias, lse, do, delta, dk, dv, b, t, h, d, q_scale, device, stream
-    "vampnet_attention_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # q, k, v, bias, bias_is_bf16, out, lse, b, t, h, d, q_scale, device, stream
+    "vampnet_attention_fwd_lse": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias, bias_is_bf16, lse, do, delta, dk, dv, b, t, h, d, q_scale,
+    # device, stream
+    "vampnet_attention_bwd_dkdv": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, bias, lse, do, delta, dq_acc, dbias, b, t, h, d, q_scale, device, stream
-    "vampnet_attention_bwd_dq_dbias": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # q, k, v, bias, bias_is_bf16, lse, do, delta, dq_acc, dbias, b, t, h, d,
+    # q_scale, device, stream
+    "vampnet_attention_bwd_dq_dbias": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _F, _I, _P),
+    # x, x_is_bf16, w_q, w_scale, xq (scratch), a_scale (scratch), out,
+    # out_is_bf16, m, n, k, device, stream
+    "vampnet_w8a8_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, norm_weight, w1, w2, out, m, d, eps, device, stream
+    "vampnet_geglu_ffn": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     # logits, keys, temp, top_p, flag, tokens, probs, b, flat, vocab, step,
     # typical, typical_mass, typical_min_tokens, use_top_p, device, stream
     "vampnet_sampler": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -54,6 +61,10 @@ _SIGNATURES = {
 
 def sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -67,7 +78,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

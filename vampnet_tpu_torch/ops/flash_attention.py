@@ -10,9 +10,15 @@ softmax_2(q_s k^T + b_2) v, where
   * keys past t are excluded (the JAX side pads them with -1e9);
   * QK^T and PV accumulate in fp32, P enters PV as bf16, and the division by
     the row sum comes after PV.
-The layout is the port's public one, (b, t, h, d), with d = 64. The kernels
-apply both prefolds themselves as they load q and the bias, so callers pass
-the raw q and bias and no prefolded copy is ever written.
+The layout is the port's public one, (b, t, h, d). The kernels are built for
+d = 64 and d = 128; the wrappers zero-pad q, k, v (and do) up to the next of
+the two and slice the results back, keeping the scale of the unpadded d, so
+any d <= 128 runs, as on every JAX route (the JAX wrapper pads d to 128
+lanes). Zero columns change no score and no output column that is kept. The
+bias is bf16 (the serving LMs' T5 table) or fp32, on every kernel; dbias
+comes back in the bias's dtype. The kernels apply both prefolds themselves as
+they load q and the bias, so callers pass the raw q and bias and no
+prefolded copy is ever written.
 
 Inference, `attention_fwd` (through `flash_attention_with_bias` when no input
 needs a gradient): replaces `_attn_kernel_dt`
@@ -26,8 +32,8 @@ Training, the `_AttentionCore` Function (the counterpart of the JAX custom
 VJP `_attention_core`, `flash_attention.py:546-848`):
   * forward `attention_fwd_lse`: replaces `_attn_kernel_fwd_lse` (`:254`) and
     its (d,t)-major twin `_attn_kernel_fwd_lse_dt` (`:153`), whose out and
-    lse are the same. The inference kernel, with an fp32 bias, also writing
-    lse = m + log2(l) per query row in fp32, (b*h, t).
+    lse are the same. The inference kernel, also writing lse = m + log2(l)
+    per query row in fp32, (b*h, t).
   * backward `attention_bwd`: delta = rowsum(do * out) in torch (XLA in the
     JAX package, `:600-602`), then `attention_bwd_dkdv` (dk, dv; replaces
     `_attn_kernel_bwd_dkdv`, `:336`) and `attention_bwd_dq_dbias` (dq and the
@@ -58,12 +64,13 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
 
 
 def _acc(x: torch.Tensor) -> torch.dtype:
@@ -71,10 +78,16 @@ def _acc(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def _prefold(q: torch.Tensor, bias: Optional[torch.Tensor]):
+def _q_scale(q: torch.Tensor, q_scale: Optional[float]) -> float:
+    """log2(e) / sqrt(d), the q prefold's factor, unless given (a padded q
+    keeps the factor of its unpadded head dim)."""
+    return LOG2E / math.sqrt(q.shape[-1]) if q_scale is None else q_scale
+
+
+def _prefold(q: torch.Tensor, bias: Optional[torch.Tensor], q_scale: Optional[float] = None):
     """q_s = q * scale * log2(e) and b_2 = bias * log2(e), each product in
     (at least) fp32 and rounded back to the input's dtype."""
-    qs = (q.to(_acc(q)) * (LOG2E / math.sqrt(q.shape[-1]))).to(q.dtype)
+    qs = (q.to(_acc(q)) * _q_scale(q, q_scale)).to(q.dtype)
     b2 = None if bias is None else (bias.to(_acc(bias)) * LOG2E).to(bias.dtype)
     return qs, b2
 
@@ -87,18 +100,20 @@ def _scores(qs, k, b2):
 
 
 def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        bias: Optional[torch.Tensor] = None,
+                        q_scale: Optional[float] = None) -> torch.Tensor:
     """The inference kernel's function in plain PyTorch, step for step as the
     Pallas path computes it (prefolds, base-2 softmax, normalise after PV)."""
-    return attention_fwd_lse_plain(q, k, v, bias)[0]
+    return attention_fwd_lse_plain(q, k, v, bias, q_scale)[0]
 
 
 def attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            bias: Optional[torch.Tensor] = None):
+                            bias: Optional[torch.Tensor] = None,
+                            q_scale: Optional[float] = None):
     """K4's function: (out (b, t, h, d) in v's dtype, lse (b*h, t) in fp32),
     lse the base-2 log-sum-exp of each query row's scores."""
     b, t, h, _ = q.shape
-    qs, b2 = _prefold(q, bias)
+    qs, b2 = _prefold(q, bias, q_scale)
     s = _scores(qs, k, b2)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
@@ -116,11 +131,11 @@ def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return delta.permute(0, 2, 1).reshape(b * h, t).contiguous()
 
 
-def _probs_and_ds(q, k, v, bias, lse, do, delta):
+def _probs_and_ds(q, k, v, bias, lse, do, delta, q_scale=None):
     """The backward's recompute: q_s, P = exp2(s - lse) and
     dS = P (do v^T - delta) ln 2, the last two (b, h, t_q, t_k)."""
     b, t, h, _ = q.shape
-    qs, b2 = _prefold(q, bias)
+    qs, b2 = _prefold(q, bias, q_scale)
     s = _scores(qs, k, b2)
     p = torch.exp2(s - lse.reshape(b, h, t, 1).to(s.dtype))
     dp = torch.einsum("bqhd,bkhd->bhqk", do.to(s.dtype), v.to(s.dtype))
@@ -128,25 +143,29 @@ def _probs_and_ds(q, k, v, bias, lse, do, delta):
     return qs, p, ds
 
 
-def attention_bwd_dkdv_plain(q, k, v, bias, lse, do, delta):
+def attention_bwd_dkdv_plain(q, k, v, bias, lse, do, delta, q_scale=None):
     """K6's function: dk = dS^T q_s and dv = P^T do, with P and dS cast to
     the input dtype for the products."""
-    qs, p, ds = _probs_and_ds(q, k, v, bias, lse, do, delta)
+    qs, p, ds = _probs_and_ds(q, k, v, bias, lse, do, delta, q_scale)
     acc = p.dtype
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).to(acc), do.to(acc))
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).to(acc), qs.to(acc))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def attention_bwd_dq_dbias_plain(q, k, v, bias, lse, do, delta):
+def attention_bwd_dq_dbias_plain(q, k, v, bias, lse, do, delta, q_scale=None):
     """K7's function with the prefolds' chain rule: dq = (dS k) * scale *
-    log2(e) and dbias = sum over the batch of dS, times log2(e), fp32 (or
-    None without a bias)."""
-    _qs, p, ds = _probs_and_ds(q, k, v, bias, lse, do, delta)
+    log2(e) and dbias = sum over the batch of dS, times log2(e), in the
+    bias's dtype (or None without a bias). As in the JAX VJP, the batch sum
+    is cast to the bias's dtype before the log2(e) factor (in fp32) and after
+    it: two roundings for a bf16 bias, none for an fp32 one."""
+    _qs, p, ds = _probs_and_ds(q, k, v, bias, lse, do, delta, q_scale)
     acc = p.dtype
     dqs = torch.einsum("bhqk,bkhd->bqhd", ds.to(q.dtype).to(acc), k.to(acc)).to(q.dtype)
-    dq = (dqs.to(acc) * (LOG2E / math.sqrt(q.shape[-1]))).to(q.dtype)
-    dbias = None if bias is None else (ds.sum(dim=0) * LOG2E).to(bias.dtype)
+    dq = (dqs.to(acc) * _q_scale(q, q_scale)).to(q.dtype)
+    dbias = None
+    if bias is not None:
+        dbias = (ds.sum(dim=0).to(bias.dtype).to(acc) * LOG2E).to(bias.dtype)
     return dq, dbias
 
 
@@ -162,7 +181,22 @@ def attention_bwd_plain(q, k, v, bias, out, lse, do):
 # ------------------------------------------------------------- kernel wrappers
 
 
-def _check(q, k, v, bias, bias_dtypes=(torch.bfloat16, torch.float32)):
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim d at: the smallest of
+    `HEAD_DIMS` that holds it."""
+    for dk in HEAD_DIMS:
+        if d <= dk:
+            return dk
+    raise ValueError(f"the attention kernels take a head dim up to {HEAD_DIMS[-1]}, got {d}")
+
+
+def pad_head(x: torch.Tensor, dk: int) -> torch.Tensor:
+    """x (..., d) zero-padded to (..., dk), contiguous."""
+    d = x.shape[-1]
+    return x.contiguous() if d == dk else F.pad(x, (0, dk - d))
+
+
+def _check(q, k, v, bias):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -171,18 +205,25 @@ def _check(q, k, v, bias, bias_dtypes=(torch.bfloat16, torch.float32)):
         raise ValueError(f"q, k, v must share one (b, t, h, d) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, t, h, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"the attention kernels take d = {HEAD_DIM}, got {d}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    kernel_head_dim(d)
     if bias is not None:
-        if bias.device != q.device or bias.dtype not in bias_dtypes:
-            raise ValueError(f"bias must be a {' or '.join(map(str, bias_dtypes))} "
-                             "tensor on q's device")
+        if bias.device != q.device or bias.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError("bias must be a bf16 or fp32 tensor on q's device")
         if tuple(bias.shape) != (h, t, t) or not bias.is_contiguous():
             raise ValueError(f"bias must be a contiguous ({h}, {t}, {t}) tensor, "
                              f"got {tuple(bias.shape)}")
+
+
+def _padded(q, *xs):
+    """(kernel head dim, the scale of the unpadded one, the tensors padded).
+    Every padded tensor is a fresh contiguous one or a contiguous input."""
+    d = q.shape[-1]
+    dk = kernel_head_dim(d)
+    out = [pad_head(x, dk) for x in (q, *xs)]
+    for x in out:
+        if x.data_ptr() % 16:
+            raise ValueError("the attention kernels need 16-byte aligned tensors")
+    return dk, LOG2E / math.sqrt(d), out
 
 
 def _check_rows(name, x, b, t, h):
@@ -197,10 +238,14 @@ def _bias_or_zeros(bias, q):
     return bias
 
 
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The inference kernel (K1): q, k, v (b, t, h, d=64) bf16, bias (h, t, t)
-    bf16 or fp32 or None. Forward-only. CPU tensors take
+    """The inference kernel (K1): q, k, v (b, t, h, d <= 128) bf16, bias
+    (h, t, t) bf16 or fp32 or None. Forward-only. CPU tensors take
     `attention_fwd_plain`; CUDA tensors launch the kernel and count the launch
     on `flash_attention_with_bias.launches`."""
     if q.device.type == "cpu":
@@ -209,47 +254,48 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, bias)
 
     b, t, h, d = q.shape
+    dk, q_scale, (qp, kp, vp) = _padded(q, k, v)
     bias = _bias_or_zeros(bias, q)
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = torch.empty_like(qp)
     rc = build.library().vampnet_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        int(bias.dtype == torch.bfloat16), out.data_ptr(), b, t, h, d,
-        LOG2E / math.sqrt(d), q.device.index or 0, stream,
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), bias.data_ptr(),
+        int(bias.dtype == torch.bfloat16), out.data_ptr(), b, t, h, dk,
+        q_scale, q.device.index or 0, _stream(q),
     )
     build.check(rc, "attention")
     flash_attention_with_bias.launches += 1
-    return out
+    return out[..., :d]
 
 
 def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       bias: Optional[torch.Tensor] = None):
-    """The training forward (K4): (out, lse (b*h, t) fp32); the bias fp32.
-    CPU tensors take `attention_fwd_lse_plain`."""
+    """The training forward (K4): (out, lse (b*h, t) fp32); the bias bf16 or
+    fp32. CPU tensors take `attention_fwd_lse_plain`."""
     if q.device.type == "cpu":
         return attention_fwd_lse_plain(q, k, v, bias)
     build.refuse_grad("attention forward-with-lse", q, k, v, bias)
-    _check(q, k, v, bias, (torch.float32,))
+    _check(q, k, v, bias)
 
     b, t, h, d = q.shape
+    dk, q_scale, (qp, kp, vp) = _padded(q, k, v)
     bias = _bias_or_zeros(bias, q)
-    out = torch.empty_like(q)
+    out = torch.empty_like(qp)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     rc = build.library().vampnet_attention_fwd_lse(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, t, h, d, LOG2E / math.sqrt(d), q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), bias.data_ptr(),
+        int(bias.dtype == torch.bfloat16), out.data_ptr(), lse.data_ptr(), b, t, h, dk,
+        q_scale, q.device.index or 0, _stream(q),
     )
     build.check(rc, "attention forward-with-lse")
     attention_fwd_lse.launches += 1
-    return out, lse
+    return out[..., :d], lse
 
 
 def _check_bwd(q, k, v, bias, lse, do, delta):
     build.refuse_grad("attention backward", q, k, v, bias, lse, do, delta)
-    _check(q, k, v, bias, (torch.float32,))
-    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous() or do.data_ptr() % 16:
-        raise ValueError("do must be a contiguous bf16 tensor of q's shape")
+    _check(q, k, v, bias)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError("do must be a bf16 tensor of q's shape on q's device")
     b, t, h, _ = q.shape
     _check_rows("lse", lse, b, t, h)
     _check_rows("delta", delta, b, t, h)
@@ -262,38 +308,39 @@ def attention_bwd_dkdv(q, k, v, bias, lse, do, delta):
         return attention_bwd_dkdv_plain(q, k, v, bias, lse, do, delta)
     _check_bwd(q, k, v, bias, lse, do, delta)
     b, t, h, d = q.shape
+    dk_, q_scale, (qp, kp, vp, dop) = _padded(q, k, v, do)
     bias = _bias_or_zeros(bias, q)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
     rc = build.library().vampnet_attention_bwd_dkdv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, d,
-        LOG2E / math.sqrt(d), q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), bias.data_ptr(),
+        int(bias.dtype == torch.bfloat16), lse.data_ptr(), dop.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, t, h, dk_, q_scale, q.device.index or 0, _stream(q),
     )
     build.check(rc, "attention backward dk/dv")
     attention_bwd_dkdv.launches += 1
-    return dk, dv
+    return dk[..., :d], dv[..., :d]
 
 
 def attention_bwd_dq_dbias(q, k, v, bias, lse, do, delta):
-    """The dq/dbias kernel (K7): (dq bf16, dbias (h, t, t) fp32 or None).
-    CPU tensors take `attention_bwd_dq_dbias_plain`."""
+    """The dq/dbias kernel (K7): (dq bf16, dbias (h, t, t) in the bias's dtype,
+    or None). CPU tensors take `attention_bwd_dq_dbias_plain`."""
     if q.device.type == "cpu":
         return attention_bwd_dq_dbias_plain(q, k, v, bias, lse, do, delta)
     _check_bwd(q, k, v, bias, lse, do, delta)
     b, t, h, d = q.shape
+    dk_, q_scale, (qp, kp, vp, dop) = _padded(q, k, v, do)
     bias_in = _bias_or_zeros(bias, q)
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dbias = torch.empty((h, t, t), dtype=torch.float32, device=q.device)
+    dq_acc = torch.zeros(qp.shape, dtype=torch.float32, device=q.device)
+    dbias = torch.empty((h, t, t), dtype=bias_in.dtype, device=q.device)
     rc = build.library().vampnet_attention_bwd_dq_dbias(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_in.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dbias.data_ptr(), b, t, h, d,
-        LOG2E / math.sqrt(d), q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), bias_in.data_ptr(),
+        int(bias_in.dtype == torch.bfloat16), lse.data_ptr(), dop.data_ptr(),
+        delta.data_ptr(), dq_acc.data_ptr(), dbias.data_ptr(), b, t, h, dk_, q_scale,
+        q.device.index or 0, _stream(q),
     )
     build.check(rc, "attention backward dq/dbias")
     attention_bwd_dq_dbias.launches += 1
-    return dq_acc.to(q.dtype), None if bias is None else dbias
+    return dq_acc[..., :d].to(q.dtype), None if bias is None else dbias
 
 
 def attention_bwd(q, k, v, bias, out, lse, do):
@@ -330,7 +377,7 @@ class _AttentionCore(torch.autograd.Function):
 
 def flash_attention_with_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q, k, v: (b, t, h, d=64); bias: (h, t, t) or None. When grad mode is
+    """q, k, v: (b, t, h, d <= 128); bias: (h, t, t) or None. When grad mode is
     on and an input requires grad, the call goes through `_AttentionCore`
     (kernels on the card, plain versions on the CPU); otherwise through the
     inference kernel `attention_fwd`."""
