@@ -7,9 +7,11 @@ Phases, each of which must pass (no failure is caught):
   2. build the CUDA kernels from `vampnet_tpu_torch/csrc` (nvcc, one process
      per source, started together) and print the build seconds;
   3. hold every kernel against its plain PyTorch version on the card, at the
-     shapes the serving path (coarse and c2f) and the coarse training step
-     (b=8, and b=16 once) give it, and time kernel, plain version and, where
-     one exists, a single PyTorch library call;
+     shapes the serving path (coarse and c2f), the long-context chunks
+     (t = 948, 1,034, 1,723, 2,048), the masked path and the coarse training
+     step (b=8, and b=16 once; masked with key padding; b=1 at t=2,048) give
+     it, and time kernel, plain version and, where one exists, a single
+     PyTorch library call;
   4. serve full-width `Interface.vamp_e2e` requests (coarse 20 layers, c2f
      16 layers, d=1280, the 44.1 kHz codec; random weights from a seed) and
      check their outputs and the serving kernels' launch counts;
@@ -22,19 +24,28 @@ Phases, each of which must pass (no failure is caught):
      LM's logits (CPU in fp32), the codec's codes and waveform, and a small
      training step's loss and gradients (CPU in fp32);
   7. profile one more request;
-  8. serve full-width requests with the fused-FFN option
+  8. serve long-context requests through the staged API, the Gradio app's
+     sequence (encode -> build_mask -> set_chunk_size -> vamp -> decode):
+     a 20 s coarse chunk on 20 s of audio (t = 1,723, the long forward K9)
+     and an 11 s chunk on 10 s (t = 948); check launches and outputs;
+     profile one;
+  9. run a full-width masked `TransformerStack` (b=8, t=862, key-padding
+     `x_mask`) forward and backward (the masked training kernels, K5) and
+     then forward without grad (the masked forward, K3); check a small
+     masked stack and a small LM at t = 1,100 against the CPU;
+ 10. serve full-width requests with the fused-FFN option
      (`ffn_impl="fused"`, the same weights) and check that every layer's
      feed-forward went through the fused kernel and no w_1/w_2 product ran;
-  9. quantize the Interface to int8 (`Interface.quantize()`), serve
+ 11. quantize the Interface to int8 (`Interface.quantize()`), serve
      full-width requests and check the w8a8 launch counts; profile one;
- 10. check a small int8 LM and a small fused-FFN LM on the card against the
+ 12. check a small int8 LM and a small fused-FFN LM on the card against the
      CPU's plain path.
 Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernel
 against their plain versions at the serving shapes, and the attention
-kernels at head dims 32 and 128 and with a bf16 bias. Then it prints one JSON line with every kernel's numbers, the card line
-again, and `{"ok": true, "device": ...}` as the last line. Without a CUDA
-device, or without the package beside it, it exits non-zero and prints no
-result.
+kernels at head dims 32 and 128 and with a bf16 bias. Then it prints one
+JSON line with every kernel's numbers, the card line again, and
+`{"ok": true, "device": ...}` as the last line. Without a CUDA device, or
+without the package beside it, it exits non-zero and prints no result.
 """
 import json
 import math
@@ -44,6 +55,7 @@ import time
 
 SEED = 0
 REQUESTS = 5
+LONG_REQUESTS = 3  # staged requests with a 20 s coarse chunk
 OPTION_REQUESTS = 4  # per serving option (fused FFN, int8)
 TRAIN_STEPS = 5
 TRAIN_BATCH = 8
@@ -107,7 +119,31 @@ def call_ms(fn, reps=50):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def check_attention(b, t, h, d, bias_dtype, gen, timed=True):
+def key_padding_mask(b, t, valid, device="cuda"):
+    """(b, t, t) bool, batch row i open on its first valid[i % len(valid)]
+    keys (every query row keeps at least one key)."""
+    import torch
+
+    n = torch.tensor([valid[i % len(valid)] for i in range(b)], device=device)
+    m = torch.arange(t, device=device)[None, None, :] < n[:, None, None]
+    return m.expand(b, t, t).contiguous()
+
+
+def random_mask(b, t, gen):
+    """(b, t, t) bool, about a third of the keys blocked at random, the
+    diagonal open (every query row keeps a key)."""
+    import torch
+
+    m = torch.rand((b, t, t), generator=gen, device=gen.device) > 1 / 3
+    m[:, torch.arange(t), torch.arange(t)] = True
+    return m
+
+
+def check_attention(b, t, h, d, bias_dtype, gen, timed=True, mask=None):
+    """The inference route of `flash_attention_with_bias` at (b, t, h, d)
+    (K1; K3 with a mask; K9 past 1024) against its plain version; timed
+    against one SDPA call with the bias (and the folded mask) as a float
+    mask."""
     import torch
     import torch.nn.functional as F
 
@@ -120,8 +156,8 @@ def check_attention(b, t, h, d, bias_dtype, gen, timed=True):
     q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(3))
     bias = torch.randn((h, t, t), generator=gen, device=dev).to(bias_dtype)
-    out = flash_attention_with_bias(q, k, v, bias)
-    ref = attention_fwd_plain(q, k, v, bias)
+    out = flash_attention_with_bias(q, k, v, bias, mask)
+    ref = attention_fwd_plain(q, k, v, bias, mask=mask)
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
         raise AssertionError("attention kernel produced non-finite values")
@@ -134,16 +170,29 @@ def check_attention(b, t, h, d, bias_dtype, gen, timed=True):
     if not timed:
         return dict(max_abs_err=float(err.max()))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask = bias[None]
+    if mask is None:
+        lib_mask = bias[None]
+    else:  # the JAX wrapper's fold: -1e9 where blocked, a (b, h, t, t) tensor
+        lib_mask = torch.where(mask[:, None], bias[None].to(q.dtype),
+                               torch.tensor(-1e9, dtype=q.dtype, device=dev))
+    # each input read once: q, k, v, o, the bias and the mask's bytes; the
+    # products at the open entries only (what this mask's data needs)
     io_bytes = 4 * b * t * h * d * 2 + bias.numel() * bias.element_size()
-    flops = 4 * b * h * t * t * d
+    open_entries = b * t * t if mask is None else int(mask.sum())
+    if mask is not None:
+        io_bytes += mask.numel()
+    flops = 4 * h * open_entries * d
+    tb, tf = io_bytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
     return dict(
         max_abs_err=float(err.max()),
-        ms=time_ms(lambda: flash_attention_with_bias(q, k, v, bias)),
-        plain_ms=time_ms(lambda: attention_fwd_plain(q, k, v, bias)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)),
-        bound_ms=1e3 * max(io_bytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS),
-        bound_by="bytes" if io_bytes / H100_BYTES_PER_S >= flops / H100_BF16_FLOPS else "operations",
+        ms=time_ms(lambda: flash_attention_with_bias(q, k, v, bias, mask)),
+        call_ms=call_ms(lambda: flash_attention_with_bias(q, k, v, bias, mask)),
+        plain_ms=time_ms(lambda: attention_fwd_plain(q, k, v, bias, mask=mask), reps=5),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                  attn_mask=lib_mask)),
+        bound_ms=1e3 * max(tb, tf), bound_by="bytes" if tb >= tf else "operations",
+        shape=f"b={b} t={t} h={h} d={d} bias {str(bias.dtype)[6:]}"
+              + ("" if mask is None else f", mask open {open_entries / mask.numel():.3f}"),
     )
 
 
@@ -152,37 +201,41 @@ def rel_err(x, ref):
     return float((x.float() - ref.float()).norm() / ref.float().norm().clamp(min=1e-30))
 
 
-def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None):
+def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None, mask=None):
     """The training kernels at (b, t, h, d): forward-with-lse against its
     plain version, then the dk/dv and dq/dbias kernels against theirs on the
-    same (out, lse, do). The bias is fp32 (training) or `bias_dtype`.
-    Returns one result per kernel."""
+    same (out, lse, do). The bias is fp32 (training) or `bias_dtype`; with a
+    `mask` the masked kernels (K4 over K3's scores, K5) run. Returns one
+    result per kernel, keyed by the wrapper's name."""
     import torch
     import torch.nn.functional as F
 
+    from vampnet_tpu_torch.ops import flash_attention as fa
     from vampnet_tpu_torch.ops.flash_attention import (
         LOG2E,
-        attention_bwd_dkdv,
         attention_bwd_dkdv_plain,
-        attention_bwd_dq_dbias,
         attention_bwd_dq_dbias_plain,
         attention_delta,
-        attention_fwd_lse,
         attention_fwd_lse_plain,
     )
 
+    sfx = "" if mask is None else "_masked"
+    names = [f"attention_fwd_lse{sfx}", f"attention_bwd_dkdv{sfx}",
+             f"attention_bwd_dq_dbias{sfx}"]
+    fwd_k, dkdv_k, dqdb_k = (getattr(fa, n) for n in names)
+    margs = () if mask is None else (mask,)
     dev = "cuda"
     q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(4))
     bias = torch.randn((h, t, t), generator=gen, device=dev).to(bias_dtype or torch.float32)
-    out, lse = attention_fwd_lse(q, k, v, bias)
-    ref_out, ref_lse = attention_fwd_lse_plain(q, k, v, bias)
+    out, lse = fwd_k(q, k, v, bias, *margs)
+    ref_out, ref_lse = attention_fwd_lse_plain(q, k, v, bias, mask=mask)
     delta = attention_delta(out, do)
     bwd_args = (q, k, v, bias, lse, do, delta)
-    dk, dv = attention_bwd_dkdv(*bwd_args)
-    dq, dbias = attention_bwd_dq_dbias(*bwd_args)
-    ref_dk, ref_dv = attention_bwd_dkdv_plain(*bwd_args)
-    ref_dq, ref_dbias = attention_bwd_dq_dbias_plain(*bwd_args)
+    dk, dv = dkdv_k(*bwd_args, *margs)
+    dq, dbias = dqdb_k(*bwd_args, *margs)
+    ref_dk, ref_dv = attention_bwd_dkdv_plain(*bwd_args, mask=mask)
+    ref_dq, ref_dbias = attention_bwd_dq_dbias_plain(*bwd_args, mask=mask)
     torch.cuda.synchronize()
     for name, x in (("out", out), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv),
                     ("dbias", dbias)):
@@ -222,25 +275,28 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None):
                                 float((dbias.float() - ref_dbias.float()).abs().max())),
                 rel_err_dq=errs["dq"], rel_err_dbias=errs["dbias"])
     if not timed:
-        return {"attention_fwd_lse": fwd, "attention_bwd_dkdv": dkdv,
-                "attention_bwd_dq_dbias": dqdb}
+        return dict(zip(names, (fwd, dkdv, dqdb)))
 
     # bounds: each input read once, each output written once; one score-sized
-    # product is 2 b h t^2 d operations
+    # product is 2 h d operations per (query, key) entry, counted at the open
+    # entries only (what this mask's data needs); the mask's bytes are read
     act = b * t * h * d * 2  # one bf16 (b, t, h, d) tensor
     rows = b * h * t * 4  # one fp32 (b*h, t) tensor
-    bias_bytes = h * t * t * 4
-    prod = 2 * b * h * t * t * d
+    bias_bytes = h * t * t * bias.element_size()
+    mask_bytes = 0 if mask is None else mask.numel()
+    prod = 2 * h * d * (b * t * t if mask is None else int(mask.sum()))
 
     def bound(io_bytes, n_products):
         tb, tf = io_bytes / H100_BYTES_PER_S, n_products * prod / H100_BF16_FLOPS
         return dict(bound_ms=1e3 * max(tb, tf), bound_by="bytes" if tb >= tf else "operations")
 
-    fwd.update(bound(4 * act + bias_bytes + rows, 2))
-    dkdv.update(bound(6 * act + bias_bytes + 2 * rows, 4))  # s, dp, dv, dk
-    dqdb.update(bound(5 * act + 2 * bias_bytes + 2 * rows, 3))  # s, dp, dq
-    fwd.update(ms=time_ms(lambda: attention_fwd_lse(q, k, v, bias)),
-               plain_ms=time_ms(lambda: attention_fwd_lse_plain(q, k, v, bias), reps=5))
+    fwd.update(bound(4 * act + bias_bytes + mask_bytes + rows, 2))
+    dkdv.update(bound(6 * act + bias_bytes + mask_bytes + 2 * rows, 4))  # s, dp, dv, dk
+    dqdb.update(bound(5 * act + 2 * bias_bytes + mask_bytes + 2 * rows, 3))  # s, dp, dq
+    fwd.update(ms=time_ms(lambda: fwd_k(q, k, v, bias, *margs)),
+               call_ms=call_ms(lambda: fwd_k(q, k, v, bias, *margs)),
+               plain_ms=time_ms(lambda: attention_fwd_lse_plain(q, k, v, bias, mask=mask),
+                                reps=5))
 
     # the library yardstick for the forward with lse: SDPA's memory-efficient
     # kernel with compute_log_sumexp, which returns out and natural-log lse
@@ -249,8 +305,9 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None):
     # them before it calls this kernel.
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     tp = -(-t // 16) * 16
-    lib_bias = torch.zeros((1, h, t, tp), dtype=q.dtype, device=dev)
-    lib_bias[..., :t] = bias
+    lib_bias = torch.zeros((1 if mask is None else b, h, t, tp), dtype=q.dtype, device=dev)
+    lib_bias[..., :t] = bias if mask is None else torch.where(
+        mask[:, None], bias.to(q.dtype)[None], torch.tensor(-1e9, dtype=q.dtype, device=dev))
     lib_bias = lib_bias[..., :t].expand(b, h, t, t)
     efficient = torch.ops.aten._scaled_dot_product_efficient_attention
 
@@ -265,32 +322,36 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None):
     fwd.update(library_ms=time_ms(lib_fwd), library_lse_max_abs_err=lib_err,
                library_note="aten._scaled_dot_product_efficient_attention with "
                             "compute_log_sumexp, bf16 bias")
-    dkdv.update(ms=time_ms(lambda: attention_bwd_dkdv(*bwd_args)),
-                plain_ms=time_ms(lambda: attention_bwd_dkdv_plain(*bwd_args), reps=5))
-    dqdb.update(ms=time_ms(lambda: attention_bwd_dq_dbias(*bwd_args)),
-                plain_ms=time_ms(lambda: attention_bwd_dq_dbias_plain(*bwd_args), reps=5))
+    dkdv.update(ms=time_ms(lambda: dkdv_k(*bwd_args, *margs)),
+                call_ms=call_ms(lambda: dkdv_k(*bwd_args, *margs)),
+                plain_ms=time_ms(lambda: attention_bwd_dkdv_plain(*bwd_args, mask=mask), reps=5))
+    dqdb.update(ms=time_ms(lambda: dqdb_k(*bwd_args, *margs)),
+                call_ms=call_ms(lambda: dqdb_k(*bwd_args, *margs)),
+                plain_ms=time_ms(lambda: attention_bwd_dq_dbias_plain(*bwd_args, mask=mask),
+                                 reps=5))
 
     # the library yardstick for the backward: autograd through one
     # scaled_dot_product_attention call, the bias expanded to a (b, h, t, t)
     # float mask that requires grad; the backward alone is timed
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    mask = bias.to(q.dtype)[None].expand(b, h, t, t).contiguous().requires_grad_()
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_mask = lib_bias.contiguous().requires_grad_()
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask)
     lib_do = do.transpose(1, 2)
-    lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt, mask), lib_do, retain_graph=True)
+    lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt, lib_mask), lib_do, retain_graph=True)
     if lib_grads[3] is None or not torch.isfinite(lib_grads[3].float()).all():
         raise AssertionError("the library backward gave no finite mask gradient")
-    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt, mask), lib_do,
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt, lib_mask), lib_do,
                                                  retain_graph=True), reps=5)
     note = "whole backward (dq, dk, dv, dmask (b, h, t, t)) of one SDPA call"
     for res in (dkdv, dqdb):
         res.update(library_ms=lib_ms, library_note=note)
     # the backward as one function: q, k, v, do, bias, lse, delta read,
     # dq, dk, dv, dbias written, 5 products
-    pair = bound(7 * act + 2 * bias_bytes + 2 * rows, 5)
-    print(f"kernel attention backward pair: {dkdv['ms'] + dqdb['ms']:.4f} ms, bound "
-          f"{pair['bound_ms']:.4f} ms ({pair['bound_by']}), library backward {lib_ms:.4f} ms")
-    return {"attention_fwd_lse": fwd, "attention_bwd_dkdv": dkdv, "attention_bwd_dq_dbias": dqdb}
+    pair = bound(7 * act + 2 * bias_bytes + mask_bytes + 2 * rows, 5)
+    print(f"kernel attention backward pair{sfx} b={b} t={t}: {dkdv['ms'] + dqdb['ms']:.4f} ms, "
+          f"bound {pair['bound_ms']:.4f} ms ({pair['bound_by']}), library backward "
+          f"{lib_ms:.4f} ms")
+    return dict(zip(names, (fwd, dkdv, dqdb)))
 
 
 def check_sampler(b, flat, gen):
@@ -703,10 +764,11 @@ def check_train_against_cpu(gen, device="cuda"):
                 train_grad_worst_rel_err=errs[worst])
 
 
-def serve(label, iface, sig, kw, n, counters, want, n_samples):
-    """`n` full-width requests through `iface`. Every counter in `counters`
-    is set to 0 before the first and read after each; each request must make
-    `want[name]` launches of each. Returns (summary, launches over the run)."""
+def serve(label, request, n, counters, want, n_samples):
+    """`n` full-width requests, `request(i)` returning request i's
+    AudioSignal. Every counter in `counters` is set to 0 before the first and
+    read after each; each request must make `want[name]` launches of each.
+    Returns (summary, launches over the run)."""
     import numpy as np
     import torch
 
@@ -717,7 +779,7 @@ def serve(label, iface, sig, kw, n, counters, want, n_samples):
         before = {name: c.launches for name, c in counters.items()}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = iface.vamp_e2e(sig, seed=SEED + i, **kw)
+        out = request(i)
         walls.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
         made = {name: c.launches - before[name] for name, c in counters.items()}
@@ -730,7 +792,8 @@ def serve(label, iface, sig, kw, n, counters, want, n_samples):
         if made != want:
             raise AssertionError(f"{label}: launches per request {made}, want {want}")
     launches = {name: c.launches for name, c in counters.items()}
-    steady = sorted(walls[1:])  # the first request pays cuBLAS/cuDNN start-up
+    # the first request pays cuBLAS/cuDNN start-up (a single request stands alone)
+    steady = sorted(walls[1:] or walls)
     quart = [steady[round(q * (len(steady) - 1))] * 1e3 for q in (0.25, 0.5, 0.75)]
     summary = dict(wall_ms=[round(w * 1e3, 1) for w in walls], q1_ms=quart[0],
                    median_ms_after_first=quart[1], q3_ms=quart[2], peak_gib=max(peaks),
@@ -785,6 +848,162 @@ def check_options_against_cpu(gen):
     return result
 
 
+def staged_request(iface, sig, chunk_s, seed):
+    """The Gradio app's sequence on the staged API: encode -> build_mask ->
+    set_chunk_size -> vamp -> decode, at the app's mask settings; checks the
+    vamped codes before decoding them."""
+    codes = iface.encode(sig)
+    mask = iface.build_mask(codes, periodic_prompt=7, upper_codebook_mask=3, seed=seed)
+    iface.set_chunk_size(chunk_s)
+    zv = iface.vamp(codes, mask, batch_size=2, _sampling_steps=12, seed=seed)
+    n_cb = iface.c2f.config.n_codebooks
+    if tuple(zv.shape) != (2, n_cb, codes.shape[-1]) or bool((zv == iface.coarse.mask_token).any()):
+        raise AssertionError(f"staged vamp gave codes {tuple(zv.shape)} with MASK tokens left: "
+                             f"{int((zv == iface.coarse.mask_token).sum())}")
+    return iface.decode(zv)
+
+
+def masked_stack_full_width(gen, t, valid):
+    """A full-width coarse `TransformerStack` (20 layers, d=1280, bf16
+    compute, fp32 parameters and T5 bias) at b=8 with a key-padding `x_mask`
+    (batch rows open on `valid` keys): forward and backward, then an
+    inference forward. Returns (results, launches of the masked kernels)."""
+    import torch
+
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.modules.transformer import position_bias_from_params
+    from vampnet_tpu_torch.ops import flash_attention as fa
+
+    cfg = LMConfig.coarse(dropout=0.0)
+    lm = VampNetLM(cfg, device="meta").to_empty(device="cuda")
+    lm.load_state_dict(random_state(lm, gen))
+    stack = lm.transformer
+    b, d = TRAIN_BATCH, cfg.embedding_dim
+    x = torch.randn((b, t, d), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((b, t, d), generator=gen, device="cuda")
+    mask = key_padding_mask(b, t, valid)
+    names = ("attention_fwd_lse_masked", "attention_bwd_dkdv_masked",
+             "attention_bwd_dq_dbias_masked", "attention_fwd_masked", "attention_fwd_lse",
+             "attention_bwd_dkdv", "attention_bwd_dq_dbias", "attention_fwd_long")
+    counters = {n: getattr(fa, n) for n in names}
+    counters["attention_fwd"] = fa.flash_attention_with_bias
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bias = position_bias_from_params(lm, t)
+    out = stack(x, bias, x_mask=mask)
+    (out.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    wall_train = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    made_train = {n: c.launches for n, c in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(attention_fwd_lse_masked=cfg.n_layers, attention_bwd_dkdv_masked=cfg.n_layers,
+                attention_bwd_dq_dbias_masked=cfg.n_layers)
+    if made_train != want:
+        raise AssertionError(f"masked stack forward and backward: launches {made_train}, "
+                             f"want {want}")
+    grads = {n: p.grad for n, p in lm.named_parameters() if p.grad is not None}
+    if not all(bool(torch.isfinite(g).all()) for g in grads.values()) or \
+            not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("masked stack: non-finite output or gradient")
+    table = "transformer.layers_0.self_attn.relative_attention_bias"
+    for name in (table, *(f"transformer.layers_{i}.self_attn.w_qs.weight"
+                          for i in range(cfg.n_layers))):
+        if name not in grads or not bool((grads[name] != 0).any()):
+            raise AssertionError(f"masked stack: {name} received no gradient")
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out_inf = stack(x, bias.detach(), x_mask=mask)
+    torch.cuda.synchronize()
+    wall_inf = time.perf_counter() - t0
+    made_inf = {n: c.launches for n, c in counters.items()}
+    want_inf = dict(dict.fromkeys(counters, 0), attention_fwd_masked=cfg.n_layers)
+    if made_inf != want_inf:
+        raise AssertionError(f"masked stack inference: launches {made_inf}, want {want_inf}")
+    # the inference kernel is the training forward without its lse rows
+    if not torch.equal(out_inf, out.detach()):
+        raise AssertionError("masked stack: the inference forward differs from the "
+                             "training forward")
+    result = dict(shape=f"b={b} t={t} d={d} layers={cfg.n_layers} valid keys {list(valid)}",
+                  forward_backward_ms=wall_train * 1e3, inference_forward_ms=wall_inf * 1e3,
+                  peak_gib=peak, launches_forward_backward=made_train,
+                  launches_inference=made_inf)
+    print("masked stack: " + json.dumps(result))
+    launches = {n: made_train[n] for n in names[:3]}
+    launches["attention_fwd_masked"] = made_inf["attention_fwd_masked"]
+    return result, launches
+
+
+def check_small_lms_against_cpu(gen):
+    """Small models on the card (bf16 compute, through the kernels) against
+    the CPU (fp32, the plain paths), from one set of weights: a masked
+    `TransformerStack`'s output and gradients (K3's scores, K4 masked, K5),
+    and an LM's logits at t = 1,100, past 1024 (K9)."""
+    import dataclasses
+
+    import torch
+
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.modules.transformer import position_bias_from_params
+    from vampnet_tpu_torch.ops import flash_attention as fa
+
+    cfg = LMConfig(n_heads=2, n_layers=2, n_codebooks=4, embedding_dim=128, dropout=0.0)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    lm32 = VampNetLM(dataclasses.replace(cfg, compute_dtype="float32"), device="cpu")
+    lm32.load_state_dict(random_state(lm32, cpu_gen, fan_in=True))
+    lm = VampNetLM(cfg, device="meta").to_empty(device="cuda")
+    lm.load_state_dict(lm32.state_dict())
+    t = 200
+    x = torch.randn((2, t, cfg.embedding_dim), generator=cpu_gen)
+    w = torch.randn((2, t, cfg.embedding_dim), generator=cpu_gen)
+    mask = key_padding_mask(2, t, (t, 130), device="cpu")
+
+    def run(model, dev, dtype):
+        params = [p for p in model.transformer.parameters()]
+        bias = position_bias_from_params(model, t)
+        out = model.transformer(x.to(dev, dtype), bias, x_mask=mask.to(dev))
+        grads = torch.autograd.grad((out.float() * w.to(dev)).sum(), params)
+        return out.detach().float().cpu(), [g.float().cpu() for g in grads]
+
+    counters = (fa.attention_fwd_lse_masked, fa.attention_bwd_dkdv_masked,
+                fa.attention_bwd_dq_dbias_masked)
+    before = [c.launches for c in counters]
+    out, grads = run(lm, "cuda", torch.bfloat16)
+    if [c.launches - n for c, n in zip(counters, before)] != [cfg.n_layers] * 3:
+        raise AssertionError("the small masked stack did not go through the masked kernels")
+    out32, grads32 = run(lm32, "cpu", torch.float32)
+    names = [n for n, _ in lm.transformer.named_parameters()]
+    errs = {n: rel_err(g, g32) for n, g, g32 in zip(names, grads, grads32)}
+    worst = max(errs, key=errs.get)
+    out_err = rel_err(out, out32)
+    # bf16 activations and products through 2 layers against fp32
+    if not out_err <= 5e-2 or errs[worst] > 5e-2:
+        raise AssertionError(f"small masked stack vs CPU fp32: output rel err {out_err}, "
+                             f"worst gradient {worst} rel err {errs[worst]}")
+
+    t_long = 1100
+    codes = torch.randint(0, cfg.vocab_size + 1, (1, cfg.n_codebooks, t_long), generator=cpu_gen)
+    cbs = torch.randn((cfg.n_codebooks, cfg.vocab_size, cfg.latent_dim), generator=cpu_gen)
+    n0 = fa.attention_fwd_long.launches
+    with torch.inference_mode():
+        got = lm.forward_codes(codes.cuda(), cbs.cuda()).cpu()
+        ref = lm32.forward_codes(codes, cbs)
+    if fa.attention_fwd_long.launches - n0 != cfg.n_layers:
+        raise AssertionError("the small LM at t=1100 did not go through the long forward")
+    long_err = float((got - ref).abs().max() / ref.abs().max())
+    if not long_err < 5e-2:
+        raise AssertionError(f"small LM logits at t={t_long} on the card vs CPU fp32: "
+                             f"rel err {long_err}")
+    return dict(masked_stack_out_rel_err=out_err, masked_stack_grad_worst=worst,
+                masked_stack_grad_worst_rel_err=errs[worst], long_logits_rel_err=long_err)
+
+
 def fused_interface(iface):
     """An Interface whose LMs take `ffn_impl="fused"` and share `iface`'s
     weight tensors (no copy), so that its peak memory compares with the
@@ -818,6 +1037,7 @@ def main() -> int:
     from vampnet_tpu_torch.codec import LAC, CodecConfig
     from vampnet_tpu_torch.interface import Interface
     from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.ops import flash_attention as fa
     from vampnet_tpu_torch.ops.ffn_kernel import fused_geglu_ffn
     from vampnet_tpu_torch.ops.flash_attention import flash_attention_with_bias
     from vampnet_tpu_torch.ops.int8_matmul import w8a8_matmul
@@ -873,7 +1093,23 @@ def main() -> int:
             checks[("w8a8_matmul", f"{lm_name}_{site}")] = (
                 lambda m=m, k=k, n=n: check_w8a8(m, k, n, gen))
         checks[("fused_geglu_ffn", lm_name)] = lambda m=m: check_ffn(m, d_model, gen)
-    results = {"attention_fwd": {}, "sampler": {}, "w8a8_matmul": {}, "fused_geglu_ffn": {}}
+    # the long-context and masked routes: the app's 11 s chunk (948 tokens,
+    # K1 where JAX takes K3 without a mask) and 12-20 s chunks (K9); the
+    # masked forward (K3) at the coarse serving shape and, past 1024, K9's
+    t_long = math.ceil(20 * sr / hop)  # 1,723
+    for t in (math.ceil(11 * sr / hop), 1034, t_long, 2048):
+        route = "attention_fwd" if t <= 1024 else "attention_fwd_long"
+        checks[(route, f"t{t}")] = lambda t=t: check_attention(
+            2, t, coarse_cfg.n_heads, d_head, torch.bfloat16, gen)
+    checks[("attention_fwd_masked", "coarse")] = lambda: check_attention(
+        2, t_coarse, coarse_cfg.n_heads, d_head, torch.bfloat16, gen,
+        mask=random_mask(2, t_coarse, gen))
+    checks[("attention_fwd_long", "masked_t2048")] = lambda: check_attention(
+        2, 2048, coarse_cfg.n_heads, d_head, torch.bfloat16, gen, mask=random_mask(2, 2048, gen))
+    checks[("sampler", f"long_t{t_long}")] = lambda: check_sampler(
+        2, t_long * coarse_cfg.n_predict_codebooks, gen)
+    results = {"attention_fwd": {}, "attention_fwd_masked": {}, "attention_fwd_long": {},
+               "sampler": {}, "w8a8_matmul": {}, "fused_geglu_ffn": {}}
     for (name, shape), check in checks.items():
         results[name][shape] = check()
         print(f"kernel {name}[{shape}]: " + json.dumps(results[name][shape]))
@@ -888,6 +1124,17 @@ def main() -> int:
     for name in train_k:
         print(f"kernel {name}[train b={TRAIN_BATCH}]: " + json.dumps(train_k[name]))
         print(f"kernel {name}[train b=16]: " + json.dumps(train_k16[name]))
+    # the masked training kernels at the coarse training shape with a
+    # key-padding mask, and the unmasked ones at b=1, t=2048, where JAX's
+    # "auto" would take XLA and the port takes the kernels
+    valid = (t_coarse, 700, 431, 100)
+    masked_k = check_attention_train(TRAIN_BATCH, t_coarse, coarse_cfg.n_heads, d_head, gen,
+                                     mask=key_padding_mask(TRAIN_BATCH, t_coarse, valid))
+    train_k2048 = check_attention_train(1, 2048, coarse_cfg.n_heads, d_head, gen)
+    for name in masked_k:
+        print(f"kernel {name}[train b={TRAIN_BATCH} key padding]: " + json.dumps(masked_k[name]))
+    for name in train_k2048:
+        print(f"kernel {name}[train b=1 t=2048]: " + json.dumps(train_k2048[name]))
     # the training kernels at the other head dims and with the serving LMs'
     # bf16 bias
     for label, kw in (("d32", dict(h=d_model // 32, d=32)),
@@ -917,7 +1164,8 @@ def main() -> int:
                 "w8a8_matmul": w8a8_matmul, "fused_geglu_ffn": fused_geglu_ffn}
     want = {"attention_fwd": n_layer_calls, "sampler": 12 + 2, "w8a8_matmul": 0,
             "fused_geglu_ffn": 0}
-    served, base_launches = serve("bf16", iface, sig, kw, REQUESTS, counters, want, n_samples)
+    served, base_launches = serve("bf16", lambda i: iface.vamp_e2e(sig, seed=SEED + i, **kw),
+                                  REQUESTS, counters, want, n_samples)
     launches = {"attention_fwd": base_launches["attention_fwd"],
                 "sampler": base_launches["sampler"]}
 
@@ -932,7 +1180,32 @@ def main() -> int:
     # ---- 7. where a request's time goes ----
     profile("request", lambda: iface.vamp_e2e(sig, seed=99, **kw))
 
-    # ---- 8. the fused-FFN option: same weights, ffn_impl="fused" ----
+    # ---- 8. long-context requests through the staged API ----
+    # the Gradio app's sequence with a 20 s coarse chunk on a 20 s signal
+    # (t = 1,723: K9), then an 11 s chunk on a 10 s signal (t = 948, one
+    # padded chunk: K1 where JAX takes K3 without a mask)
+    sig20 = bench_signal(sr, 20.0)
+    long_counters = dict(counters, attention_fwd_long=fa.attention_fwd_long,
+                         attention_fwd_masked=fa.attention_fwd_masked)
+    base_want = dict.fromkeys(long_counters, 0)
+    want20 = dict(base_want, attention_fwd=2 * c2f_cfg.n_layers,
+                  attention_fwd_long=12 * coarse_cfg.n_layers, sampler=12 + 2)
+    served_long, long_launches = serve(
+        "long 20 s", lambda i: staged_request(iface, sig20, 20, SEED + i), LONG_REQUESTS,
+        long_counters, want20, t_long * hop)
+    launches["attention_fwd_long"] = long_launches["attention_fwd_long"]
+    want11 = dict(base_want, attention_fwd=n_layer_calls, sampler=12 + 2)
+    served_11, _ = serve("long 11 s chunk", lambda i: staged_request(iface, sig, 11, SEED + i),
+                         1, long_counters, want11, n_samples)
+    profile("long request", lambda: staged_request(iface, sig20, 20, 97))
+    iface.set_chunk_size(10)
+
+    # ---- 9. a full-width masked TransformerStack, forward and backward ----
+    masked_stack, masked_launches = masked_stack_full_width(gen, t_coarse, valid)
+    launches.update(masked_launches)
+    print("cpu check: " + json.dumps(check_small_lms_against_cpu(gen)))
+
+    # ---- 10. the fused-FFN option: same weights, ffn_impl="fused" ----
     fused_iface = fused_interface(iface)
     ffn_calls = [0]
     hooks = [m.register_forward_pre_hook(lambda *_: ffn_calls.__setitem__(0, ffn_calls[0] + 1))
@@ -940,8 +1213,9 @@ def main() -> int:
              for name, m in lm.named_modules()
              if name.endswith(("feed_forward.w_1", "feed_forward.w_2"))]
     want_fused = dict(want, fused_geglu_ffn=n_layer_calls)
-    served_fused, fused_launches = serve("fused-ffn", fused_iface, sig, kw, OPTION_REQUESTS,
-                                         counters, want_fused, n_samples)
+    served_fused, fused_launches = serve(
+        "fused-ffn", lambda i: fused_iface.vamp_e2e(sig, seed=SEED + i, **kw), OPTION_REQUESTS,
+        counters, want_fused, n_samples)
     for h in hooks:
         h.remove()
     if ffn_calls[0] or len(hooks) != 2 * (coarse_cfg.n_layers + c2f_cfg.n_layers):
@@ -949,7 +1223,7 @@ def main() -> int:
     launches["fused_geglu_ffn"] = fused_launches["fused_geglu_ffn"]
     del fused_iface
 
-    # ---- 9. the int8 option: Interface.quantize() on the served weights ----
+    # ---- 11. the int8 option: Interface.quantize() on the served weights ----
     t0 = time.perf_counter()
     iface.quantize()
     torch.cuda.synchronize()
@@ -960,12 +1234,12 @@ def main() -> int:
             any(s.dtype != torch.float32 for s in scales):
         raise AssertionError("quantize() left a projection unquantized or a scale not fp32")
     want_int8 = dict(want, w8a8_matmul=6 * n_layer_calls)
-    served_int8, int8_launches = serve("int8", iface, sig, kw, OPTION_REQUESTS, counters,
-                                       want_int8, n_samples)
+    served_int8, int8_launches = serve("int8", lambda i: iface.vamp_e2e(sig, seed=SEED + i, **kw),
+                                       OPTION_REQUESTS, counters, want_int8, n_samples)
     launches["w8a8_matmul"] = int8_launches["w8a8_matmul"]
     profile("int8 request", lambda: iface.vamp_e2e(sig, seed=98, **kw))
 
-    # ---- 10. the two options on the card against the CPU ----
+    # ---- 12. the two options on the card against the CPU ----
     print("cpu check: " + json.dumps(check_options_against_cpu(gen)))
 
     def entry(name, source, replaces, res, main="coarse"):
@@ -979,6 +1253,14 @@ def main() -> int:
     kernels = [
         entry("attention_fwd", "vampnet_tpu_torch/csrc/attention_fwd.cu",
               "vampnet_tpu/ops/flash_attention.py:120", attn),
+        dict(entry("attention_fwd_masked", "vampnet_tpu_torch/csrc/attention_fwd.cu",
+                   "vampnet_tpu/ops/flash_attention.py:93", results["attention_fwd_masked"]),
+             also_replaces="without a mask at 896 < t <= 1024: attention_fwd (K1) at t948",
+             launches_path="masked TransformerStack, inference forward"),
+        dict(entry("attention_fwd_long", "vampnet_tpu_torch/csrc/attention_fwd.cu",
+                   "vampnet_tpu/ops/flash_attention.py:47", results["attention_fwd_long"],
+                   main=f"t{t_long}"),
+             launches_path="staged requests with a 20 s coarse chunk"),
         entry("sampler", "vampnet_tpu_torch/csrc/sampler.cu",
               "vampnet_tpu/ops/sampler_kernel.py:80", samp),
     ]
@@ -999,6 +1281,25 @@ def main() -> int:
             shape=f"b={TRAIN_BATCH} t={t_coarse} h={coarse_cfg.n_heads} d={d_head}",
             library_note=res.get("library_note"),
             b16={k: v for k, v in train_k16[name].items()},
+            b1_t2048={k: v for k, v in train_k2048[name].items()},
+        ))
+    for name, source, replaces, also in (
+        ("attention_fwd_lse_masked", "attention_fwd.cu", ":254",
+         "over the per-(b*h) bias that :913-921 folds the mask into (K3's scores)"),
+        ("attention_bwd_dkdv_masked", "attention_bwd.cu", ":279",
+         "with attention_bwd_dq_dbias_masked: K5's dk and dv"),
+        ("attention_bwd_dq_dbias_masked", "attention_bwd.cu", ":279",
+         "with attention_bwd_dkdv_masked: K5's dq and its dbias summed over the batch"),
+    ):
+        res = masked_k[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"vampnet_tpu_torch/csrc/{source}",
+            replaces=f"vampnet_tpu/ops/flash_attention.py{replaces}", also_replaces=also,
+            launches=launches[name], **{k: res[k] for k in keys},
+            shape=f"b={TRAIN_BATCH} t={t_coarse} h={coarse_cfg.n_heads} d={d_head}, "
+                  f"key padding {list(valid)}",
+            library_note=res.get("library_note"), call_ms=res["call_ms"],
+            launches_path="masked TransformerStack, forward and backward",
         ))
     kernels.append(dict(
         entry("w8a8_matmul", "vampnet_tpu_torch/csrc/int8_matmul.cu",
@@ -1011,7 +1312,9 @@ def main() -> int:
         main_shape=f"coarse: m={m_rows['coarse']} d={d_model}",
         launches_per_request=n_layer_calls, registers=ffn_regs))
     print("serve summary: " + json.dumps({"bf16": served, "fused_ffn": served_fused,
-                                          "int8": served_int8}))
+                                          "int8": served_int8, "long_20s": served_long,
+                                          "chunk_11s": served_11}))
+    print("masked stack summary: " + json.dumps(masked_stack))
     print("train summary: " + json.dumps(train))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

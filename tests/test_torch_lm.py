@@ -102,3 +102,112 @@ def test_w_ks_takes_no_lora_rank(monkeypatch):
                                           device="meta")
     assert {n: getattr(attn, n).r for n in ("w_qs", "w_ks", "w_vs", "fc")} == \
         {"w_qs": 8, "w_ks": 0, "w_vs": 8, "fc": 8}
+
+
+# ---------------------------------------------------------------- x_mask
+
+STACK_KW = dict(n_heads=2, n_layers=2, embedding_dim=32)
+
+
+def _stack_pair(attention_impl="auto", seed=50):
+    """A JAX `TransformerStack` (fp32, no dropout) with random numpy params,
+    and the port's stack loaded from them."""
+    import jax
+
+    jstack = jtr.TransformerStack(n_heads=2, n_layers=2, dropout=0.0,
+                                  attention_impl=attention_impl, dtype=jnp.float32)
+    shapes = jax.eval_shape(lambda key: jstack.init(key, jnp.zeros((1, 8, 32))),
+                            jax.random.PRNGKey(0))["params"]
+    rng = np.random.default_rng(seed)
+
+    def fill(tree):
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                out[key] = fill(val)
+            elif key == "kernel":
+                out[key] = (rng.standard_normal(val.shape) / np.sqrt(val.shape[0])).astype(np.float32)
+            elif key == "weight":
+                out[key] = (1.0 + 0.1 * rng.standard_normal(val.shape)).astype(np.float32)
+            else:
+                out[key] = rng.standard_normal(val.shape).astype(np.float32)
+        return out
+
+    params = fill(shapes)
+    cfg = ttr.LMConfig(**STACK_KW, compute_dtype="float32", dropout=0.0,
+                       attention_impl=attention_impl)
+    stack = ttr.TransformerStack(cfg, device="cpu")
+    stack.load_state_dict(lm_state_dict_from_jax(params, cfg), strict=True)
+    return jstack, params, stack.requires_grad_(False), cfg
+
+
+def _port_bias(stack, cfg, t):
+    table = stack.layers_0.self_attn.relative_attention_bias
+    rel = torch.arange(t)[None, :] - torch.arange(t)[:, None]
+    buckets = ttr.relative_position_bucket(rel, True, cfg.attention_num_buckets,
+                                           cfg.attention_max_distance)
+    return table[buckets].permute(2, 0, 1).contiguous()
+
+
+def _key_padding(b, t):
+    valid = np.array([t, t - 9, t // 2][:b])
+    m = np.arange(t)[None, None, :] < valid[:, None, None]
+    return np.ascontiguousarray(np.broadcast_to(m, (b, t, t))).astype(np.int32)
+
+
+@pytest.mark.parametrize("mask_rank", [3, 4])
+def test_stack_with_x_mask_matches_jax_fp32(mask_rank):
+    jstack, params, stack, cfg = _stack_pair()
+    b, t = 3, 37
+    rng = np.random.default_rng(51)
+    x = rng.standard_normal((b, t, 32)).astype(np.float32)
+    w = rng.standard_normal((b, t, 32)).astype(np.float32)
+    mask = _key_padding(b, t)
+    if mask_rank == 4:
+        mask = mask[:, None]
+
+    def jloss(x):
+        out = jstack.apply({"params": to_jax(params)}, x, jnp.asarray(mask))
+        return (out * jnp.asarray(w)).sum(), out
+
+    (_, want), want_dx = jax_value_and_grad(jloss)(jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = stack(tx, _port_bias(stack, cfg, t), x_mask=torch.from_numpy(mask))
+    (got * torch.from_numpy(w)).sum().backward()
+    # fp32 through 2 layers; the frameworks sum in different orders
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx), rtol=2e-4, atol=2e-4)
+    # the mask matters: without it the outputs move
+    free = stack(torch.from_numpy(x), _port_bias(stack, cfg, t)).numpy()
+    assert not np.allclose(free, np.asarray(want), atol=1e-3)
+
+
+def jax_value_and_grad(f):
+    import jax
+
+    return jax.value_and_grad(f, has_aux=True)
+
+
+def test_attention_impl_carried_over():
+    assert ttr.LMConfig().attention_impl == jtr.LMConfig().attention_impl == "auto"
+    jstack, params, stack, cfg = _stack_pair(attention_impl="xla", seed=52)
+    assert all(getattr(stack, f"layers_{i}").self_attn.attention_impl == "xla" for i in range(2))
+    b, t = 2, 29
+    x = np.random.default_rng(53).standard_normal((b, t, 32)).astype(np.float32)
+    mask = _key_padding(b, t)
+    want = jstack.apply({"params": to_jax(params)}, jnp.asarray(x), jnp.asarray(mask))
+    bias = _port_bias(stack, cfg, t)
+    got = stack(torch.from_numpy(x), bias, x_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    # the kernels' route ("pallas"; on CPU tensors their plain versions) on
+    # the same weights computes the same function
+    _, _, pstack, pcfg = _stack_pair(attention_impl="pallas", seed=52)
+    got_p = pstack(torch.from_numpy(x), bias, x_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="attention_impl"):
+        ttr.TransformerStack(ttr.LMConfig(**STACK_KW, attention_impl="flash"), device="meta")
+    rstack = ttr.TransformerStack(ttr.LMConfig(**STACK_KW, compute_dtype="float32",
+                                               attention_impl="ring"), device="cpu")
+    rstack.load_state_dict(stack.state_dict())
+    with pytest.raises(NotImplementedError, match="ring"):
+        rstack(torch.from_numpy(x), bias)

@@ -17,7 +17,8 @@ Layer map (mirrors `vampnet_tpu`):
   modules/   the masked-token transformer LM
   sampling/  MaskGIT sampling loop and token samplers
   ops/       attention dispatcher + the hand-written kernels' wrappers
-  interface  `Interface.vamp_e2e`, the serving main path
+  interface  `Interface`: `vamp_e2e` (one call) and the staged API
+             (`encode`, `build_mask`, `set_chunk_size`, `vamp`, `decode`)
   convert    flax param tree (numpy) -> port state dicts
 """
 __version__ = "0.1.0"

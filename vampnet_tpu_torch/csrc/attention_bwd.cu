@@ -13,6 +13,16 @@
 // where the last factors are the prefolds' chain rule. P and dS enter their
 // products as bf16, all products accumulate in fp32 (mma.sync m16n8k16).
 //
+// With a (b, t, t) byte mask (0 = blocked) the same two kernels port the
+// masked backward `_attn_kernel_bwd` (:279), which the JAX VJP takes for the
+// per-(b*h) bias it folds the mask into and which writes one dbias per
+// (b*h), summed over the batch by the chain rule through the broadcast. Here
+// the bias stays head-shared: a blocked score is the constant -1e9, so its
+// dS is 0 (the chain rule through JAX's `where`) and it adds nothing to dq,
+// dk or dbias. Its P is 0 where the row has an open key; in a row with none
+// (lse = -1e9, see mma_bf16.cuh) the forward averaged v, so P is 1/t there
+// and dv gets do / t, the gradient of the JAX XLA path.
+//
 // Layout: q, k, v, do, dk, dv are (b, t, h, D) bf16, the kernels instantiated
 // for D = 64 and D = 128 (the wrapper zero-pads a smaller head dim); bias and
 // dbias are (h, t, t), both bf16 or both fp32; lse and delta are (b*h, t)
@@ -20,6 +30,10 @@
 // with atomics. Tiles sit in dynamic shared memory (dk/dv 36 KB at D = 64,
 // 52 KB at 128; dq/dbias 36 KB and 68 KB). At D = 128 the dk/dv kernel's
 // K, V fragments and dK, dV accumulators alone take 192 registers a thread.
+//
+// The mask is read beside the bias: the dk/dv kernel marks a blocked entry
+// of its shared bias tile with -inf, the dq/dbias kernel reads the batch
+// row's mask bytes as it forms each score fragment.
 //
 // Design (see ops/flash_attention.py for the bound):
 //  * dkdv: one block of 4 warps per (64-key tile, batch*head); each warp owns
@@ -95,18 +109,19 @@ __device__ __forceinline__ void mm_xb(float acc[D / 8][4], const float x[BT / 8]
   }
 }
 
-template <int D, bool BIAS_BF16>
+template <int D, bool BIAS_BF16, bool MASKED>
 __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const void* __restrict__ bias,
-    const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
+    const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+    const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dv, int t, int h, float q_scale) {
   constexpr int LDS = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);  // q_s tile (K tile at the start)
   __nv_bfloat16* sdo = sq + BT * LDS;                          // dO tile (V tile at the start)
-  float* sb = reinterpret_cast<float*>(sdo + BT * LDS);        // b_2 tile, [query][key]
+  float* sb = reinterpret_cast<float*>(sdo + BT * LDS);        // b_2 tile, [query][key], -inf where blocked
   float* slse = sb + BT * SBS;
   float* sdelta = slse + BT;
 
@@ -123,6 +138,8 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
   const size_t row_stride = (size_t)h * D;
   const size_t base = (size_t)bi * t * row_stride + (size_t)hi * D;
   const size_t bias_h = (size_t)hi * t * t;
+  const size_t mask_b = (size_t)bi * t * t;
+  const float inv_t = 1.f / (float)t;
 
   // this warp's 16 keys of K and V as A fragments, kept for the whole loop
   uint32_t ak[D / 16][4], av[D / 16][4];
@@ -154,6 +171,13 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
         if (k0 + col + 1 < t) val.y = load_bias<BIAS_BF16>(bias, src + 1);
         if (k0 + col + 2 < t) val.z = load_bias<BIAS_BF16>(bias, src + 2);
         if (k0 + col + 3 < t) val.w = load_bias<BIAS_BF16>(bias, src + 3);
+        if (MASKED) {
+          const uint8_t* mr = mask + mask_b + (size_t)(q0 + r) * t + k0 + col;
+          if (k0 + col + 0 < t && !mr[0]) val.x = -CUDART_INF_F;
+          if (k0 + col + 1 < t && !mr[1]) val.y = -CUDART_INF_F;
+          if (k0 + col + 2 < t && !mr[2]) val.z = -CUDART_INF_F;
+          if (k0 + col + 3 < t && !mr[3]) val.w = -CUDART_INF_F;
+        }
       }
       *reinterpret_cast<float4*>(sb + r * SBS + col) = val;
     }
@@ -164,7 +188,8 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
     }
     __syncthreads();
 
-    // S^T (16 keys x 64 queries) = K Q_s^T, then P^T = exp2(S^T + b_2^T - lse)
+    // S^T (16 keys x 64 queries) = K Q_s^T, then P^T = exp2(S^T + b_2^T - lse);
+    // a blocked entry's P is 0, or 1/t in a row with no open key
     float s[BT / 8][4];
     mm_abt<D>(s, ak, sq, g, tg);
 #pragma unroll
@@ -173,7 +198,16 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
       for (int e = 0; e < 4; ++e) {
         const int qc = j * 8 + tg * 2 + (e & 1);
         const int kr = wr + g + (e >> 1) * 8;
-        s[j][e] = (q0 + qc < t) ? exp2f(s[j][e] + sb[qc * SBS + kr] - slse[qc]) : 0.f;
+        const float bb = sb[qc * SBS + kr];
+        float p = 0.f;
+        if (q0 + qc < t) {
+          if (MASKED && bb == -CUDART_INF_F) {
+            p = slse[qc] < FULLY_BLOCKED_LSE ? inv_t : 0.f;
+          } else {
+            p = exp2f(s[j][e] + bb - slse[qc]);
+          }
+        }
+        s[j][e] = p;
       }
     }
     // dV += P^T dO
@@ -186,7 +220,8 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qc = j * 8 + tg * 2 + (e & 1);
-        s[j][e] = s[j][e] * (dp[j][e] - sdelta[qc]) * LN2_F;
+        const bool blocked = MASKED && sb[qc * SBS + wr + g + (e >> 1) * 8] == -CUDART_INF_F;
+        s[j][e] = blocked ? 0.f : s[j][e] * (dp[j][e] - sdelta[qc]) * LN2_F;
       }
     }
     // dK += dS^T Q_s
@@ -211,11 +246,12 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dkdv_kernel(
   }
 }
 
-template <int D, bool BIAS_BF16>
+template <int D, bool BIAS_BF16, bool MASKED>
 __global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const void* __restrict__ bias,
-    const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
+    const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+    const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ delta, float* __restrict__ dq_acc,
     void* __restrict__ dbias, int b, int t, int h, float q_scale) {
   constexpr int LDS = D + 8;
@@ -265,18 +301,21 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
     const float delta_r[2] = {r_lo < t ? delta[row_lse + r_lo] : 0.f,
                               r_hi < t ? delta[row_lse + r_hi] : 0.f};
 
-    // S = Q_s K^T + b_2, P = exp2(S - lse)
+    // S = Q_s K^T + b_2, P = exp2(S - lse); a blocked entry's P (and so its
+    // dS) is 0 here: only dv, in the other kernel, needs its P
     uint32_t a[D / 16][4];
     float s[BT / 8][4];
     load_a<D>(a, sq, wr, g, tg);
     mm_abt<D>(s, a, sk, g, tg);
+    const size_t mask_b = (size_t)bi * t * t;
 #pragma unroll
     for (int j = 0; j < BT / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = (e < 2) ? r_lo : r_hi;
         const int col = k0 + j * 8 + tg * 2 + (e & 1);
-        s[j][e] = (r < t && col < t) ? exp2f(s[j][e] + b2[j][e] - lse_r[e >> 1]) : 0.f;
+        const bool open = r < t && col < t && (!MASKED || mask[mask_b + (size_t)r * t + col]);
+        s[j][e] = open ? exp2f(s[j][e] + b2[j][e] - lse_r[e >> 1]) : 0.f;
       }
     }
     // dP = dO V^T; dS = P (dP - delta) ln 2, summed into dbias
@@ -334,76 +373,88 @@ __global__ void __launch_bounds__(THREADS) attention_bwd_dq_dbias_kernel(
   }
 }
 
-template <int D, bool BIAS_BF16>
+template <int D, bool BIAS_BF16, bool MASKED>
 cudaError_t launch_dkdv(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v,
-                        const void* bias, const void* lse, const void* dout, const void* delta,
-                        void* dk, void* dv, int t, int h, float q_scale) {
+                        const void* bias, const void* mask, const void* lse, const void* dout,
+                        const void* delta, void* dk, void* dv, int t, int h, float q_scale) {
   const size_t smem = (size_t)2 * BT * (D + 8) * 2 + (size_t)BT * SBS * 4 + 2 * BT * 4;
-  return launch(attention_bwd_dkdv_kernel<D, BIAS_BF16>, grid, THREADS, smem, s,
+  return launch(attention_bwd_dkdv_kernel<D, BIAS_BF16, MASKED>, grid, THREADS, smem, s,
                 static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                static_cast<const __nv_bfloat16*>(v), bias, static_cast<const float*>(lse),
+                static_cast<const __nv_bfloat16*>(v), bias, static_cast<const uint8_t*>(mask),
+                static_cast<const float*>(lse),
                 static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(delta),
                 static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), t, h, q_scale);
 }
 
-template <int D, bool BIAS_BF16>
+template <int D, bool BIAS_BF16, bool MASKED>
 cudaError_t launch_dq_dbias(dim3 grid, cudaStream_t s, const void* q, const void* k,
-                            const void* v, const void* bias, const void* lse, const void* dout,
-                            const void* delta, void* dq_acc, void* dbias, int b, int t, int h,
-                            float q_scale) {
+                            const void* v, const void* bias, const void* mask, const void* lse,
+                            const void* dout, const void* delta, void* dq_acc, void* dbias, int b,
+                            int t, int h, float q_scale) {
   const size_t smem = (size_t)4 * BT * (D + 8) * 2;
-  return launch(attention_bwd_dq_dbias_kernel<D, BIAS_BF16>, grid, THREADS, smem, s,
+  return launch(attention_bwd_dq_dbias_kernel<D, BIAS_BF16, MASKED>, grid, THREADS, smem, s,
                 static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                static_cast<const __nv_bfloat16*>(v), bias, static_cast<const float*>(lse),
+                static_cast<const __nv_bfloat16*>(v), bias, static_cast<const uint8_t*>(mask),
+                static_cast<const float*>(lse),
                 static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(delta),
                 static_cast<float*>(dq_acc), dbias, b, t, h, q_scale);
 }
 
+// The instantiation for (head dim, bias dtype, mask or none).
+template <template <int, bool, bool> class Launch, typename... Args>
+cudaError_t dispatch(int d, int bias_is_bf16, bool masked, Args... args) {
+  if (d == 64) {
+    if (bias_is_bf16) return masked ? Launch<64, true, true>::run(args...) : Launch<64, true, false>::run(args...);
+    return masked ? Launch<64, false, true>::run(args...) : Launch<64, false, false>::run(args...);
+  }
+  if (bias_is_bf16) return masked ? Launch<128, true, true>::run(args...) : Launch<128, true, false>::run(args...);
+  return masked ? Launch<128, false, true>::run(args...) : Launch<128, false, false>::run(args...);
+}
+
+template <int D, bool BIAS_BF16, bool MASKED>
+struct DkDv {
+  template <typename... Args>
+  static cudaError_t run(Args... args) { return launch_dkdv<D, BIAS_BF16, MASKED>(args...); }
+};
+
+template <int D, bool BIAS_BF16, bool MASKED>
+struct DqDbias {
+  template <typename... Args>
+  static cudaError_t run(Args... args) { return launch_dq_dbias<D, BIAS_BF16, MASKED>(args...); }
+};
+
 }  // namespace
 
 // Both entry points take a head dim d of 64 or 128 (the wrapper zero-pads
-// q, k, v and do up to one of them and passes q_scale for the unpadded d) and
-// a bf16 or fp32 bias; dbias is written in the bias's dtype.
+// q, k, v and do up to one of them and passes q_scale for the unpadded d), a
+// bf16 or fp32 bias, and a mask that is null or (b, t, t) bytes, 0 = blocked;
+// dbias is written in the bias's dtype.
 extern "C" int vampnet_attention_bwd_dkdv(const void* q, const void* k, const void* v,
-                                          const void* bias, int bias_is_bf16, const void* lse,
-                                          const void* dout, const void* delta, void* dk, void* dv,
-                                          int b, int t, int h, int d, float q_scale, int device,
-                                          void* stream) {
+                                          const void* bias, int bias_is_bf16, const void* mask,
+                                          const void* lse, const void* dout, const void* delta,
+                                          void* dk, void* dv, int b, int t, int h, int d,
+                                          float q_scale, int device, void* stream) {
   if (b <= 0 || t <= 0 || h <= 0 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t + BT - 1) / BT, b * h);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) {
-    err = bias_is_bf16 ? launch_dkdv<64, true>(grid, s, q, k, v, bias, lse, dout, delta, dk, dv, t, h, q_scale)
-                       : launch_dkdv<64, false>(grid, s, q, k, v, bias, lse, dout, delta, dk, dv, t, h, q_scale);
-  } else {
-    err = bias_is_bf16 ? launch_dkdv<128, true>(grid, s, q, k, v, bias, lse, dout, delta, dk, dv, t, h, q_scale)
-                       : launch_dkdv<128, false>(grid, s, q, k, v, bias, lse, dout, delta, dk, dv, t, h, q_scale);
-  }
-  return (int)err;
+  return (int)dispatch<DkDv>(d, bias_is_bf16, mask != nullptr, grid,
+                             static_cast<cudaStream_t>(stream), q, k, v, bias, mask, lse, dout,
+                             delta, dk, dv, t, h, q_scale);
 }
 
 extern "C" int vampnet_attention_bwd_dq_dbias(const void* q, const void* k, const void* v,
                                               const void* bias, int bias_is_bf16,
-                                              const void* lse, const void* dout,
-                                              const void* delta, void* dq_acc, void* dbias, int b,
-                                              int t, int h, int d, float q_scale, int device,
-                                              void* stream) {
+                                              const void* mask, const void* lse,
+                                              const void* dout, const void* delta, void* dq_acc,
+                                              void* dbias, int b, int t, int h, int d,
+                                              float q_scale, int device, void* stream) {
   if (b <= 0 || t <= 0 || h <= 0 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int nt = (t + BT - 1) / BT;
   const dim3 grid(nt, nt, h);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) {
-    err = bias_is_bf16
-              ? launch_dq_dbias<64, true>(grid, s, q, k, v, bias, lse, dout, delta, dq_acc, dbias, b, t, h, q_scale)
-              : launch_dq_dbias<64, false>(grid, s, q, k, v, bias, lse, dout, delta, dq_acc, dbias, b, t, h, q_scale);
-  } else {
-    err = bias_is_bf16
-              ? launch_dq_dbias<128, true>(grid, s, q, k, v, bias, lse, dout, delta, dq_acc, dbias, b, t, h, q_scale)
-              : launch_dq_dbias<128, false>(grid, s, q, k, v, bias, lse, dout, delta, dq_acc, dbias, b, t, h, q_scale);
-  }
-  return (int)err;
+  return (int)dispatch<DqDbias>(d, bias_is_bf16, mask != nullptr, grid,
+                                static_cast<cudaStream_t>(stream), q, k, v, bias, mask, lse,
+                                dout, delta, dq_acc, dbias, b, t, h, q_scale);
 }

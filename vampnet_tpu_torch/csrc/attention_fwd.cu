@@ -3,19 +3,30 @@
 // Port of the Pallas inference kernel `_attn_kernel_dt`
 // (vampnet_tpu/ops/flash_attention.py:120) and, through the second entry
 // point, of the training forward `_attn_kernel_fwd_lse` (:254) and its
-// (d,t)-major twin `_attn_kernel_fwd_lse_dt` (:153). It computes
+// (d,t)-major twin `_attn_kernel_fwd_lse_dt` (:153). With a mask it also
+// ports `_attn_kernel` (:93), the forward over the per-(b*h) bias that the
+// JAX wrapper folds a (b, t, t) mask into, and at t > 1024 the blocked
+// online-softmax forward `_attn_kernel_blocked` (:47): the key loop below
+// has no upper t, so one kernel serves every length. It computes
 //   out = softmax_2(q_s k^T + b_2) v
 // with q_s = bf16(q * q_scale) (q_scale = log2(e) / sqrt(d), product in fp32),
 // b_2 = bias * log2(e) rounded back to the bias dtype, keys past t excluded,
 // fp32 accumulation of both products, P rounded to bf16 for the PV product,
-// and the division by the row sum after PV. The training entry point also
-// writes lse = m + log2(l), the base-2 log-sum-exp of each query row, in fp32,
-// (b*h, t), which the backward (attention_bwd.cu) recomputes P from.
+// and the division by the row sum after PV. Where the mask is 0 the score is
+// -1e9 (the JAX wrapper's fill, in the prefolded base-2 units): such a key
+// gets no weight in a row that has an open key, and a row with no open key
+// averages v over the t keys, as the JAX XLA path does. The training entry
+// point also writes lse = m + log2(l), the base-2 log-sum-exp of each query
+// row, in fp32, (b*h, t), which the backward (attention_bwd.cu) recomputes P
+// from.
 //
 // Layout: q, k, v, out are (b, t, h, D) bf16, the kernel instantiated for
 // D = 64 and D = 128 (the wrapper zero-pads a smaller head dim up to one of
 // them); bias is (h, t, t), bf16 or fp32, shared by every batch row. The
 // three tiles sit in dynamic shared memory: 27 KB at D = 64, 51 KB at 128.
+// The mask, where there is one, is (b, t, t) bytes (0 = blocked), read as the
+// bias is: the head-shared bias and the batch row's mask are combined as the
+// score fragment is formed, so no (b*h, t, t) bias is ever written.
 //
 // Design: one block of 4 warps per (64-row query tile, batch*head). Each warp
 // owns 16 query rows. Keys stream through shared memory in tiles of 64; the
@@ -39,11 +50,12 @@ constexpr int BQ = 64;       // query rows per block (4 warps x 16)
 constexpr int BK = 64;       // keys per tile
 constexpr int THREADS = 128;
 
-template <int D, bool BIAS_BF16, bool WITH_LSE>
+template <int D, bool BIAS_BF16, bool WITH_LSE, bool MASKED>
 __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const void* __restrict__ bias,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int t, int h, float q_scale) {
+    const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    int t, int h, float q_scale) {
   constexpr int LDS = D + 8;  // shared-memory row stride (bf16), padded against bank conflicts
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -82,6 +94,8 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
   const int r_hi = r_lo + 8;
   const size_t bias_lo = ((size_t)hi * t + (r_lo < t ? r_lo : 0)) * t;
   const size_t bias_hi = ((size_t)hi * t + (r_hi < t ? r_hi : 0)) * t;
+  const size_t mask_lo = ((size_t)bi * t + (r_lo < t ? r_lo : 0)) * t;
+  const size_t mask_hi = ((size_t)bi * t + (r_hi < t ? r_hi : 0)) * t;
 
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float l_run[2] = {0.f, 0.f};
@@ -107,7 +121,8 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
       }
     }
 
-    // + prefolded bias; keys past t drop out of the softmax
+    // + prefolded bias, or the fill where the mask blocks; keys past t drop
+    // out of the softmax
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
@@ -116,8 +131,11 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
         const int col = key0 + j * 8 + tg * 2 + (e & 1);
         float val = -CUDART_INF_F;
         if (col < t) {
+          // the bias is loaded whatever the mask says, so that the two
+          // loads are in flight together
           const size_t row_off = (e < 2) ? bias_lo : bias_hi;
           val = s[j][e] + load_bias<BIAS_BF16>(bias, row_off + col);
+          if (MASKED && !mask[((e < 2) ? mask_lo : mask_hi) + col]) val = MASKED_SCORE;
         }
         s[j][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
@@ -128,7 +146,8 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     }
-    // the first tile always holds key 0, so mx is finite from here on
+    // the first tile always holds key 0, so mx is finite from here on (a
+    // blocked key counts as -1e9; a later open key resets the row by alpha = 0)
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -196,9 +215,10 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
   }
 }
 
-template <bool BIAS_BF16, bool WITH_LSE>
-int launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
-               void* lse, int b, int t, int h, int d, float q_scale, int device, void* stream) {
+template <bool BIAS_BF16, bool WITH_LSE, bool MASKED>
+int launch_fwd(const void* q, const void* k, const void* v, const void* bias, const void* mask,
+               void* out, void* lse, int b, int t, int h, int d, float q_scale, int device,
+               void* stream) {
   if (b <= 0 || t <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -208,43 +228,56 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias, vo
   const auto* vv = static_cast<const __nv_bfloat16*>(v);
   auto* oo = static_cast<__nv_bfloat16*>(out);
   auto* ll = static_cast<float*>(lse);
+  const auto* mm = static_cast<const uint8_t*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) {
-    return (int)launch(attention_fwd_kernel<64, BIAS_BF16, WITH_LSE>, grid, THREADS,
-                       (size_t)(BQ + 2 * BK) * (64 + 8) * 2, s, qq, kk, vv, bias, oo, ll, t, h,
-                       q_scale);
+    return (int)launch(attention_fwd_kernel<64, BIAS_BF16, WITH_LSE, MASKED>, grid, THREADS,
+                       (size_t)(BQ + 2 * BK) * (64 + 8) * 2, s, qq, kk, vv, bias, mm, oo, ll, t,
+                       h, q_scale);
   }
   if (d == 128) {
-    return (int)launch(attention_fwd_kernel<128, BIAS_BF16, WITH_LSE>, grid, THREADS,
-                       (size_t)(BQ + 2 * BK) * (128 + 8) * 2, s, qq, kk, vv, bias, oo, ll, t, h,
-                       q_scale);
+    return (int)launch(attention_fwd_kernel<128, BIAS_BF16, WITH_LSE, MASKED>, grid, THREADS,
+                       (size_t)(BQ + 2 * BK) * (128 + 8) * 2, s, qq, kk, vv, bias, mm, oo, ll, t,
+                       h, q_scale);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool WITH_LSE>
+int dispatch_fwd(const void* q, const void* k, const void* v, const void* bias, int bias_is_bf16,
+                 const void* mask, void* out, void* lse, int b, int t, int h, int d,
+                 float q_scale, int device, void* stream) {
+  if (mask != nullptr) {
+    return bias_is_bf16 ? launch_fwd<true, WITH_LSE, true>(q, k, v, bias, mask, out, lse, b, t,
+                                                           h, d, q_scale, device, stream)
+                        : launch_fwd<false, WITH_LSE, true>(q, k, v, bias, mask, out, lse, b,
+                                                            t, h, d, q_scale, device, stream);
+  }
+  return bias_is_bf16 ? launch_fwd<true, WITH_LSE, false>(q, k, v, bias, mask, out, lse, b, t, h,
+                                                          d, q_scale, device, stream)
+                      : launch_fwd<false, WITH_LSE, false>(q, k, v, bias, mask, out, lse, b, t,
+                                                           h, d, q_scale, device, stream);
 }
 
 }  // namespace
 
 // The kernels take a head dim d of 64 or 128; the wrapper zero-pads q, k, v
-// up to one of them and passes q_scale for the unpadded d.
+// up to one of them and passes q_scale for the unpadded d. `mask` is null or
+// (b, t, t) bytes, 0 = blocked.
 extern "C" int vampnet_attention_fwd(const void* q, const void* k, const void* v,
-                                     const void* bias, int bias_is_bf16, void* out,
-                                     int b, int t, int h, int d, float q_scale,
+                                     const void* bias, int bias_is_bf16, const void* mask,
+                                     void* out, int b, int t, int h, int d, float q_scale,
                                      int device, void* stream) {
-  return bias_is_bf16
-             ? launch_fwd<true, false>(q, k, v, bias, out, nullptr, b, t, h, d, q_scale, device,
-                                       stream)
-             : launch_fwd<false, false>(q, k, v, bias, out, nullptr, b, t, h, d, q_scale, device,
-                                        stream);
+  return dispatch_fwd<false>(q, k, v, bias, bias_is_bf16, mask, out, nullptr, b, t, h, d,
+                             q_scale, device, stream);
 }
 
 // The training forward: the same kernel, also writing the fp32 lse rows,
 // (b*h, t). The bias is bf16 (the serving LMs' bf16 T5 table) or fp32.
 extern "C" int vampnet_attention_fwd_lse(const void* q, const void* k, const void* v,
-                                         const void* bias, int bias_is_bf16, void* out, void* lse,
-                                         int b, int t, int h, int d, float q_scale, int device,
-                                         void* stream) {
-  return bias_is_bf16
-             ? launch_fwd<true, true>(q, k, v, bias, out, lse, b, t, h, d, q_scale, device, stream)
-             : launch_fwd<false, true>(q, k, v, bias, out, lse, b, t, h, d, q_scale, device,
-                                       stream);
+                                         const void* bias, int bias_is_bf16, const void* mask,
+                                         void* out, void* lse, int b, int t, int h, int d,
+                                         float q_scale, int device, void* stream) {
+  return dispatch_fwd<true>(q, k, v, bias, bias_is_bf16, mask, out, lse, b, t, h, d, q_scale,
+                            device, stream);
 }

@@ -1,6 +1,7 @@
 // Shared helpers of the bf16 tensor-core kernels (attention_fwd.cu,
 // attention_bwd.cu, ffn.cu): fragment packing, the m16n8k16 mma.sync, the
-// bias prefold, and the 64-row tile copy into padded shared memory.
+// bias prefold and the mask's fill, and the 64-row tile copy into padded
+// shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,6 +11,12 @@
 namespace vampnet {
 
 constexpr float LOG2E_F = 1.4426950408889634f;
+// The score of a key the mask blocks: the JAX wrapper's -1e9 fill, in the
+// prefolded base-2 units. A row whose every key is blocked has max -1e9 and
+// lse = -1e9 + log2(t), which rounds to -1e9 in fp32; the backward reads an
+// lse below FULLY_BLOCKED_LSE as such a row.
+constexpr float MASKED_SCORE = -1e9f;
+constexpr float FULLY_BLOCKED_LSE = -5e8f;
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo

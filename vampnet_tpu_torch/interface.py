@@ -1,19 +1,30 @@
 """Serving entry point (counterpart of `vampnet_tpu/interface.py`):
-`Interface.from_modules`, `quantize`, `s2t`, `_preprocess` and `vamp_e2e`.
+`Interface.from_modules`, `quantize`, the staged API (`encode`,
+`build_mask`, `set_chunk_size`, `vamp` with `coarse_vamp` and
+`coarse_to_fine`, `decode`) and the one-call `vamp_e2e`.
 
-`vamp_e2e` runs one vamp request: host preprocess -> codec encode -> mask
-build -> coarse MaskGIT over chunk rows -> c2f MaskGIT -> codec decode. It
-runs eagerly; every attention layer of every step goes through the attention
-kernel and every step through the sampler kernel when the Interface lives on
-the card. Randomness comes from one `torch.Generator` seeded per request; the
-port does not reproduce `jax.random`'s bits, so the JAX package and the port
+The staged API is the sequence the JAX package's Gradio app, web app and
+token telephone run: encode -> build_mask -> set_chunk_size -> vamp ->
+decode. `vamp_e2e` runs the same stages in one call: host preprocess ->
+codec encode -> mask build -> coarse MaskGIT over chunk rows -> c2f MaskGIT
+-> codec decode. Both run eagerly; every attention layer of every step goes
+through the attention kernels and every step through the sampler kernel when
+the Interface lives on the card. The coarse chunk length is whatever
+`set_chunk_size` made it: past 1024 tokens (about 11.9 s at 44.1 kHz, hop
+512) the attention takes the long forward (K9).
+
+Randomness comes from `torch.Generator`s: one per request in `vamp_e2e`;
+in the staged API one per stage, seeded as the JAX package seeds its keys
+(`build_mask` from its seed, each `coarse_vamp` and `coarse_to_fine` of a
+`vamp` from sub-seeds that `np.random.default_rng(seed)` draws). The port
+does not reproduce `jax.random`'s bits, so the JAX package and the port
 agree token for token only where no random draw decides anything.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -45,15 +56,27 @@ def _load(module: nn.Module, state: Mapping, device: torch.device,
     return module.requires_grad_(False).eval()
 
 
+# the keyword arguments of a vamp that coarse_to_fine also takes (the JAX
+# package's `vamp`)
+_C2F_KWARGS = ("temperature", "mask_temperature", "typical_mass", "typical_min_tokens",
+               "sample_cutoff")
+
+
 class Interface:
+    """The codec and the two LMs on one device. Each LM carries its chunk
+    length in seconds as `chunk_size_s`, where the JAX package's `_LoadedLM`
+    keeps it; `set_chunk_size` changes the coarse one, and the staged API
+    and `vamp_e2e` both read them."""
+
     def __init__(self, codec: LAC, coarse: VampNetLM, c2f: Optional[VampNetLM],
                  coarse_chunk_size_s: float = 10, coarse2fine_chunk_size_s: float = 3):
         self.codec = codec
         self.codec_config: CodecConfig = codec.config
         self.coarse = coarse
         self.c2f = c2f
-        self.coarse_chunk_size_s = coarse_chunk_size_s
-        self.c2f_chunk_size_s = coarse2fine_chunk_size_s
+        coarse.chunk_size_s = coarse_chunk_size_s
+        if c2f is not None:
+            c2f.chunk_size_s = coarse2fine_chunk_size_s
         self.device = next(codec.parameters()).device
         self.loudness = -24.0
         self.codebooks = codec.codebook_tables()  # (n_cb, vocab, codebook_dim)
@@ -93,17 +116,36 @@ class Interface:
                 continue
             cfg = dataclasses.replace(lm.config, quantization="int8")
             state = quantize_lm_state_dict(lm.state_dict())
+            chunk_size_s = lm.chunk_size_s
             setattr(self, name, None)
             del lm
-            setattr(self, name, _load(VampNetLM(cfg, device="meta"), state, self.device,
-                                      torch.bfloat16))
+            lm = _load(VampNetLM(cfg, device="meta"), state, self.device, torch.bfloat16)
+            lm.chunk_size_s = chunk_size_s
+            setattr(self, name, lm)
             del state
         return self
+
+    # ---------- time/token conversion ----------
 
     def s2t(self, seconds: float) -> int:
         """seconds -> tokens."""
         sr, hop = self.codec_config.sample_rate, self.codec_config.hop_length
         return math.ceil(seconds * sr / hop)
+
+    def t2s(self, tokens):
+        """tokens -> seconds."""
+        sr, hop = self.codec_config.sample_rate, self.codec_config.hop_length
+        return tokens * hop / sr
+
+    def s2t2s(self, seconds):
+        return self.t2s(self.s2t(seconds))
+
+    def set_chunk_size(self, chunk_size_s: float):
+        """The coarse LM's chunk length in seconds (the serving apps set it
+        before each vamp)."""
+        self.coarse.chunk_size_s = chunk_size_s
+
+    # ---------- codec ----------
 
     def _preprocess(self, signal: AudioSignal) -> AudioSignal:
         """resample -> mono -> -24 LUFS -> peak cap -> pad to a hop multiple."""
@@ -118,6 +160,295 @@ class Interface:
         if pad:
             signal.zero_pad(0, pad)
         return signal
+
+    @torch.inference_mode()
+    def encode(self, signal: AudioSignal) -> torch.Tensor:
+        """AudioSignal -> codes (b, n_codebooks, T) int64 on the device."""
+        signal = self._preprocess(signal)
+        audio = torch.from_numpy(np.ascontiguousarray(signal.samples.transpose(0, 2, 1)))
+        return self.codec.encode(audio.to(self.device))
+
+    @torch.inference_mode()
+    def decode(self, z) -> AudioSignal:
+        """codes -> AudioSignal. MASK tokens decode as code 0, and a frame
+        whose every codebook is MASK is silenced, as in the JAX package."""
+        z = self._tensor(z)
+        mask_token = self.coarse.mask_token
+        audio = self.codec.decode_codes(torch.where(z == mask_token, 0, z))
+        all_masked = (z == mask_token).all(dim=1)  # (b, T)
+        b, t = all_masked.shape
+        hop = self.codec_config.hop_length
+        audio = audio[:, : t * hop, :].reshape(b, t, hop) * (~all_masked)[:, :, None]
+        return AudioSignal(audio.reshape(b, t * hop, 1).cpu().numpy().transpose(0, 2, 1),
+                           self.codec_config.sample_rate)
+
+    # ---------- masks ----------
+
+    def _tensor(self, x) -> torch.Tensor:
+        """Codes or a mask (a tensor or an array) as an int64 tensor on the
+        device."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x))
+        return x.to(self.device, torch.int64)
+
+    def _generator(self, seed) -> torch.Generator:
+        """A generator on the device, seeded by `seed` (None: a random seed)."""
+        if seed is not None and np.ndim(seed) > 0:
+            raise NotImplementedError(
+                "per-row seeds are not ported (ROADMAP Queue A item 4, per-row keys)")
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed) if seed is not None else int(np.random.randint(0, 2**31 - 1)))
+        return gen
+
+    def _mask_pipeline(self, z, gen, rand_mask_intensity, n_prefix, n_suffix,
+                       periodic_prompt, periodic_prompt_width, _dropout,
+                       upper_codebook_mask, ncc):
+        """The mask operators of the JAX `build_mask`, drawing from `gen` in
+        its order: random, inpaint, rolled periodic, dropout, then the
+        codebook masks."""
+        m = pmask.linear_random(gen, z, rand_mask_intensity)
+        m = pmask.mask_and(m, pmask.inpaint(z, n_prefix, n_suffix))
+        m = pmask.mask_and(m, pmask.periodic_mask(
+            z, int(periodic_prompt), int(periodic_prompt_width), random_roll=True,
+            generator=gen))
+        m = pmask.dropout(gen, m, float(_dropout))
+        m = pmask.codebook_unmask(m, int(ncc))
+        return pmask.codebook_mask(m, int(upper_codebook_mask))
+
+    @torch.inference_mode()
+    def build_mask(
+        self,
+        z,
+        sig: Optional[AudioSignal] = None,
+        rand_mask_intensity: float = 1.0,
+        prefix_s: float = 0.0,
+        suffix_s: float = 0.0,
+        periodic_prompt: int = 7,
+        periodic_prompt_width: int = 1,
+        onset_mask_width: int = 0,
+        _dropout: float = 0.0,
+        upper_codebook_mask: int = 3,
+        ncc: int = 0,
+        seed: Optional[int] = None,
+    ) -> torch.Tensor:
+        """The JAX `build_mask`: (b, n_codebooks, T) int64, 1 = regenerate."""
+        if onset_mask_width > 0:
+            raise NotImplementedError(
+                "onset_mask_width > 0 needs beats.py (onset detection), which is not "
+                "ported: ROADMAP Queue A item 6, the onset mask")
+        z = self._tensor(z)
+        return self._mask_pipeline(
+            z, self._generator(seed), rand_mask_intensity, self.s2t(prefix_s),
+            self.s2t(suffix_s), periodic_prompt, periodic_prompt_width, _dropout,
+            upper_codebook_mask, ncc)
+
+    # ---------- generation ----------
+
+    def _chunk_fns(self, n_cb: int, b: int, t: int, chunk_len: int, mask_token: int,
+                   pin_edges: bool):
+        """Chunk-as-batch windowing: ((pre, post), n_chunks).
+
+        pre:  (cz (b, C, t), m (b, C, t)) -> (masked chunks, mask chunks),
+              both (n_chunks * b, C, chunk_len), padded to n_chunks * chunk_len
+              (codes with 0, the mask with 1); with `pin_edges` a chunk's first
+              and last steps are kept wherever any step of that chunk is kept
+              (seam continuity).
+        post: chunks (n_chunks * b, C, chunk_len) -> (b, C, t).
+        Rows are chunk-major: row = chunk * b + batch row."""
+        n_chunks = math.ceil(t / chunk_len)
+        pad = n_chunks * chunk_len - t
+        lo_idx = [i * chunk_len for i in range(n_chunks)]
+        hi_idx = [min(t, (i + 1) * chunk_len) - 1 for i in range(n_chunks)]
+
+        def to_chunks(x):
+            x = x.reshape(b, n_cb, n_chunks, chunk_len).permute(2, 0, 1, 3)
+            return x.reshape(n_chunks * b, n_cb, chunk_len)
+
+        def pre(cz, m):
+            if pin_edges:
+                chunked = F.pad(m, (0, pad), value=1).reshape(b, n_cb, n_chunks, chunk_len)
+                has_zero = (chunked == 0).any(dim=3).any(dim=1).any(dim=0)  # (n_chunks,)
+                pin = torch.where(has_zero, 0, 1).to(m.dtype)
+                m = m.clone()
+                lo = torch.tensor(lo_idx, device=m.device)
+                hi = torch.tensor(hi_idx, device=m.device)
+                m[:, :, lo] = torch.minimum(m[:, :, lo], pin)
+                m[:, :, hi] = torch.minimum(m[:, :, hi], pin)
+            cz_c = to_chunks(F.pad(cz, (0, pad)))
+            m_c = to_chunks(F.pad(m, (0, pad), value=1))
+            return torch.where(m_c.bool(), mask_token, cz_c), m_c
+
+        def post(x):
+            x = x.reshape(n_chunks, b, n_cb, chunk_len).permute(1, 2, 0, 3)
+            return x.reshape(b, n_cb, n_chunks * chunk_len)[:, :, :t]
+
+        return (pre, post), n_chunks
+
+    def _run_generate(
+        self,
+        lm: VampNetLM,
+        start_tokens: torch.Tensor,
+        mask: torch.Tensor,
+        generator: torch.Generator,
+        _sampling_steps: int = 12,
+        temperature=1.0,
+        mask_temperature=10.5,
+        typical_filtering: bool = True,
+        typical_mass: float = 0.15,
+        typical_min_tokens: int = 64,
+        top_k: Optional[int] = None,
+        top_p=None,
+        sample_cutoff=1.0,
+        cfg_guidance: Optional[float] = None,
+        sampler_impl: str = "auto",
+    ) -> torch.Tensor:
+        """MaskGIT over chunk rows with `lm`, the T5 bias built once for the
+        chunk length. Per-request (b,) parameters are tiled over the chunk
+        rows, as in the JAX package."""
+        if top_k is not None:
+            raise NotImplementedError("top_k sampling is not ported: ROADMAP Queue A item 4")
+        if cfg_guidance is not None:
+            raise NotImplementedError("cfg_guidance is not ported: ROADMAP Queue A item 4")
+        if sampler_impl != "auto":
+            raise NotImplementedError(
+                f"sampler_impl={sampler_impl!r}: the port has one sampler, the fused "
+                "kernel (sampler_impl='auto')")
+        b_total, n_cb, chunk_len = start_tokens.shape
+
+        def expand(v):
+            if v is None or np.ndim(v) == 0:
+                return v
+            v = torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                                dtype=torch.float32, device=self.device)
+            if v.shape[0] != b_total:
+                if b_total % v.shape[0]:
+                    raise ValueError(f"per-row param of size {v.shape[0]} does not divide "
+                                     f"batch {b_total}")
+                v = v.repeat(b_total // v.shape[0])
+            return v
+
+        bias = position_bias_from_params(lm, chunk_len)
+        cbs = self.codebooks[:n_cb]
+        return generate(
+            lambda zm: lm.forward_codes(zm, cbs, position_bias=bias),
+            start_tokens, mask, lm.mask_token, generator,
+            n_conditioning_codebooks=lm.config.n_conditioning_codebooks,
+            sampling_steps=int(_sampling_steps), temperature=expand(temperature),
+            mask_temperature=expand(mask_temperature),
+            typical_filtering=bool(typical_filtering), typical_mass=float(typical_mass),
+            typical_min_tokens=int(typical_min_tokens), top_p=expand(top_p),
+            sample_cutoff=expand(sample_cutoff),
+        )
+
+    @torch.inference_mode()
+    def coarse_vamp(self, z, mask, return_mask: bool = False,
+                    gen_fn: Optional[Callable] = None, seed: Optional[int] = None,
+                    chunked: Optional[bool] = None, **kwargs):
+        """Vamp the coarse codebooks in chunks of `coarse.chunk_size_s`, the
+        chunks as batch rows, with chunk-edge pinning. Returns the codes with
+        the fine codebooks re-appended from z (and, with `return_mask`, the
+        masked coarse codes). `gen_fn(start_tokens=, mask=, generator=,
+        **kwargs)` replaces the MaskGIT call. The chunk-free path
+        (`chunked=False`) needs the sp mesh, which is not ported."""
+        if chunked is False:
+            raise NotImplementedError(
+                "chunk-free coarse_vamp (chunked=False) runs ring attention over an sp "
+                "mesh, which is not ported: ROADMAP Queue A item 9")
+        z, mask = self._tensor(z), self._tensor(mask)
+        lm = self.coarse
+        n_coarse = lm.config.n_codebooks
+        b, _, t = z.shape
+        (pre, post), _ = self._chunk_fns(n_coarse, b, t, self.s2t(lm.chunk_size_s),
+                                         lm.mask_token, pin_edges=True)
+        cz_masked, m_chunks = pre(z[:, :n_coarse], mask[:, :n_coarse])
+        gen = self._generator(seed)
+        if gen_fn is not None:
+            chunks = gen_fn(start_tokens=cz_masked, mask=m_chunks, generator=gen, **kwargs)
+        else:
+            chunks = self._run_generate(lm, cz_masked, m_chunks, gen, **kwargs)
+        c_vamp = post(chunks)
+        if z.shape[1] > n_coarse:
+            c_vamp = torch.cat([c_vamp, z[:, n_coarse:]], dim=1)
+        if return_mask:
+            return c_vamp, post(cz_masked)
+        return c_vamp
+
+    @torch.inference_mode()
+    def coarse_to_fine(self, z, mask=None, return_mask: bool = False,
+                       seed: Optional[int] = None, **kwargs):
+        """Fill the fine codebooks in chunks of `c2f.chunk_size_s`, batched;
+        the conditioning codebooks are kept. 2 steps with the typical filter
+        unless given."""
+        if self.c2f is None:
+            raise ValueError("no coarse-to-fine model loaded")
+        z = self._tensor(z)
+        lm = self.c2f
+        b, n_cb_in, length = z.shape
+        n_cb = lm.config.n_codebooks
+        if n_cb > n_cb_in:
+            z = torch.cat([z, torch.zeros((b, n_cb - n_cb_in, length), dtype=z.dtype,
+                                          device=z.device)], dim=1)
+        mask = torch.ones_like(z) if mask is None else self._tensor(mask)
+        mask = pmask.codebook_unmask(mask, lm.config.n_conditioning_codebooks)
+        (pre, post), _ = self._chunk_fns(n_cb, b, length, self.s2t(lm.chunk_size_s),
+                                         lm.mask_token, pin_edges=False)
+        z_masked, m_chunks = pre(z, mask)
+        kwargs.setdefault("_sampling_steps", 2)
+        kwargs.setdefault("typical_filtering", True)
+        fine_z = post(self._run_generate(lm, z_masked, m_chunks, self._generator(seed),
+                                         **kwargs))
+        if return_mask:
+            return fine_z, torch.where(mask.bool(), lm.mask_token, fine_z)
+        return fine_z
+
+    @torch.inference_mode()
+    def vamp(
+        self,
+        codes,
+        mask,
+        batch_size: int = 1,
+        feedback_steps: int = 1,
+        time_stretch_factor: int = 1,
+        return_mask: bool = False,
+        seed: Optional[int] = None,
+        **kwargs,
+    ):
+        """The two-stage vamp of the JAX package: batch expansion, time
+        stretch, `feedback_steps` coarse vamps, then coarse-to-fine. Each stage
+        draws from a generator seeded by `np.random.default_rng(seed)`.
+        Returns the codes (b, n_codebooks, T) and, with `return_mask`, the
+        masked codes as a numpy array."""
+        z, mask = self._tensor(codes), self._tensor(mask)
+        z = z.expand((batch_size,) + z.shape[1:])
+        mask = mask.expand((batch_size,) + mask.shape[1:])
+        if time_stretch_factor > 1:
+            z = torch.repeat_interleave(z, time_stretch_factor, dim=-1)
+            mask = torch.repeat_interleave(mask, time_stretch_factor, dim=-1)
+            added = torch.ones_like(mask)
+            added[:, :, ::time_stretch_factor] = 0
+            mask = (mask.bool() | added.bool()).to(torch.int64)
+        z, mask = z.contiguous(), mask.contiguous()
+
+        rng = np.random.default_rng(seed)
+        n_coarse = self.coarse.config.n_codebooks
+        zv, mask_z = z, mask
+        for i in range(feedback_steps):
+            zv, mask_z = self.coarse_vamp(zv, mask=mask, return_mask=True,
+                                          seed=int(rng.integers(0, 2**31 - 1)), **kwargs)
+            mask_z = torch.roll(mask_z, (i + 1) % feedback_steps, dims=-1)
+        if zv.shape[1] < z.shape[1]:
+            zv = torch.cat([zv, z[:, n_coarse:]], dim=1)
+
+        if self.c2f is not None:
+            c2f_kwargs = {k: v for k, v in kwargs.items() if k in _C2F_KWARGS}
+            zv, fine_zv_mask = self.coarse_to_fine(
+                zv, mask=mask, typical_filtering=True, _sampling_steps=2, return_mask=True,
+                seed=int(rng.integers(0, 2**31 - 1)), **c2f_kwargs)
+            mask_z = torch.cat([mask_z[:, :n_coarse], fine_zv_mask[:, n_coarse:]], dim=1)
+
+        if return_mask:
+            return zv, mask_z.cpu().numpy()
+        return zv
 
     @torch.inference_mode()
     def vamp_e2e(
@@ -143,7 +474,9 @@ class Interface:
         sample_cutoff: float = 1.0,
         transfer_dtype: str = "float32",
     ) -> AudioSignal:
-        """One vamp request, encode to decode, as `vampnet_tpu`'s `vamp_e2e`.
+        """One vamp request, encode to decode, as `vampnet_tpu`'s `vamp_e2e`:
+        one generator for the whole request, the chunk helpers of the staged
+        API at both LMs' `chunk_size_s`.
 
         `transfer_dtype="int16"` moves the waveform between host and device
         as 16-bit PCM both ways: the input is hard-clipped to [-1, 1] and
@@ -161,91 +494,43 @@ class Interface:
             audio = audio.to(torch.float32) * (1.0 / 32767.0)
         hop = self.codec_config.hop_length
         t_tokens = audio.shape[1] // hop
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed) if seed is not None else int(np.random.randint(0, 2**31 - 1)))
+        gen = self._generator(seed)
 
         codes = self.codec.encode(audio)[:, :, :t_tokens]
-
-        # ---- mask ----
-        m = pmask.linear_random(gen, codes, rand_mask_intensity)
-        m = pmask.mask_and(m, pmask.inpaint(codes, self.s2t(prefix_s), self.s2t(suffix_s)))
-        m = pmask.mask_and(m, pmask.periodic_mask(
-            codes, periodic_prompt, periodic_prompt_width, random_roll=True, generator=gen))
-        m = pmask.dropout(gen, m, float(_dropout))
-        m = pmask.codebook_mask(m, int(upper_codebook_mask))
+        m = self._mask_pipeline(codes, gen, rand_mask_intensity, self.s2t(prefix_s),
+                                self.s2t(suffix_s), periodic_prompt, periodic_prompt_width,
+                                _dropout, upper_codebook_mask, 0)
 
         # ---- batch expand + coarse chunks as batch rows ----
         z = codes.expand((batch_size,) + codes.shape[1:]).contiguous()
         m = m.expand((batch_size,) + m.shape[1:]).contiguous()
         coarse, c2f = self.coarse, self.c2f
-        mask_token = coarse.mask_token
         n_coarse = coarse.config.n_codebooks
-        chunk_len = self.s2t(self.coarse_chunk_size_s)
-        n_chunks = math.ceil(t_tokens / chunk_len)
-        pad = n_chunks * chunk_len - t_tokens
-
-        def to_chunks(x, n_cb, L, nc):
-            x = x.reshape(batch_size, n_cb, nc, L).permute(2, 0, 1, 3)
-            return x.reshape(nc * batch_size, n_cb, L)
-
-        def from_chunks(x, n_cb, L, nc):
-            x = x.reshape(nc, batch_size, n_cb, L).permute(1, 2, 0, 3)
-            return x.reshape(batch_size, n_cb, nc * L)[:, :, :t_tokens]
-
-        # chunk-edge pinning for seam continuity: a chunk's first and last
-        # steps are kept whenever any step of that chunk is kept
-        cm_un = m[:, :n_coarse].clone()
-        chunked = F.pad(cm_un, (0, pad), value=1).reshape(batch_size, n_coarse, n_chunks, chunk_len)
-        has_zero = (chunked == 0).any(dim=3).any(dim=1).any(dim=0)
-        pin = torch.where(has_zero, 0, 1).to(cm_un.dtype)
-        lo_idx = torch.tensor([i * chunk_len for i in range(n_chunks)], device=dev)
-        hi_idx = torch.tensor([min(t_tokens, (i + 1) * chunk_len) - 1 for i in range(n_chunks)],
-                              device=dev)
-        cm_un[:, :, lo_idx] = torch.minimum(cm_un[:, :, lo_idx], pin)
-        cm_un[:, :, hi_idx] = torch.minimum(cm_un[:, :, hi_idx], pin)
-
-        cz_c = to_chunks(F.pad(z[:, :n_coarse], (0, pad)), n_coarse, chunk_len, n_chunks)
-        cm_c = to_chunks(F.pad(cm_un, (0, pad), value=1), n_coarse, chunk_len, n_chunks)
-        z_masked = torch.where(cm_c.bool(), mask_token, cz_c)
-
-        # the T5 bias depends only on the chunk length: built once per request
-        coarse_bias = position_bias_from_params(coarse, chunk_len)
-        cbs = self.codebooks
-        cv = generate(
-            lambda zm: coarse.forward_codes(zm, cbs[:n_coarse], position_bias=coarse_bias),
-            z_masked, cm_c, mask_token, gen,
-            sampling_steps=int(_sampling_steps), temperature=temperature,
-            mask_temperature=mask_temperature, typical_filtering=bool(typical_filtering),
-            typical_mass=float(typical_mass), typical_min_tokens=int(typical_min_tokens),
-            top_p=top_p, sample_cutoff=sample_cutoff,
-        )
-        zv = from_chunks(cv, n_coarse, chunk_len, n_chunks)
+        sampling = dict(temperature=temperature, mask_temperature=mask_temperature,
+                        typical_mass=typical_mass, typical_min_tokens=typical_min_tokens,
+                        sample_cutoff=sample_cutoff)
+        (pre, post), _ = self._chunk_fns(n_coarse, batch_size, t_tokens,
+                                         self.s2t(coarse.chunk_size_s), coarse.mask_token,
+                                         pin_edges=True)
+        z_masked, cm_c = pre(z[:, :n_coarse], m[:, :n_coarse])
+        cv = self._run_generate(coarse, z_masked, cm_c, gen, _sampling_steps=_sampling_steps,
+                                typical_filtering=typical_filtering, top_p=top_p, **sampling)
+        zv = post(cv)
 
         # ---- c2f ----
         if c2f is not None:
             n_cb = c2f.config.n_codebooks
-            ncc = c2f.config.n_conditioning_codebooks
-            f_len = self.s2t(self.c2f_chunk_size_s)
-            n_chunks_f = math.ceil(t_tokens / f_len)
-            pad_f = n_chunks_f * f_len - t_tokens
-            zf = F.pad(torch.cat([zv, z[:, n_coarse:]], dim=1), (0, pad_f))
-            mf = F.pad(pmask.codebook_unmask(m, ncc), (0, pad_f), value=1)
-            zf_c = to_chunks(zf, n_cb, f_len, n_chunks_f)
-            mf_c = to_chunks(mf, n_cb, f_len, n_chunks_f)
-            zf_masked = torch.where(mf_c.bool(), mask_token, zf_c)
-            c2f_bias = position_bias_from_params(c2f, f_len)
-            fv = generate(
-                lambda zm: c2f.forward_codes(zm, cbs[:n_cb], position_bias=c2f_bias),
-                zf_masked, mf_c, mask_token, gen, n_conditioning_codebooks=ncc,
-                sampling_steps=int(c2f_steps), temperature=temperature,
-                mask_temperature=mask_temperature, typical_filtering=True,
-                typical_mass=float(typical_mass), typical_min_tokens=int(typical_min_tokens),
-                sample_cutoff=sample_cutoff,
-            )
-            zv = from_chunks(fv, n_cb, f_len, n_chunks_f)
+            (pre, post), _ = self._chunk_fns(n_cb, batch_size, t_tokens,
+                                             self.s2t(c2f.chunk_size_s), coarse.mask_token,
+                                             pin_edges=False)
+            zf_masked, mf_c = pre(torch.cat([zv, z[:, n_coarse:]], dim=1),
+                                  pmask.codebook_unmask(m, c2f.config.n_conditioning_codebooks))
+            fv = self._run_generate(c2f, zf_masked, mf_c, gen, _sampling_steps=c2f_steps,
+                                    typical_filtering=True, **sampling)
+            zv = post(fv)
 
         # ---- decode ----
-        z0 = torch.where(zv == mask_token, 0, zv)
+        z0 = torch.where(zv == coarse.mask_token, 0, zv)
         wav = self.codec.decode_codes(z0)[:, : t_tokens * hop]
         if transfer_dtype == "int16":
             wav = torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)

@@ -1,10 +1,12 @@
 """Mask algebra (counterpart of `vampnet_tpu/mask.py`), the functions the
-serving path and the training step use. Masks are int64 tensors (batch, n_codebooks, seq) with
+serving paths (`vamp_e2e` and the staged `build_mask`/`vamp`) and the
+training step use. Masks are int64 tensors (batch, n_codebooks, seq) with
 1 = regenerate and 0 = keep. Randomness comes from an explicit
 `torch.Generator` on the mask's device."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -18,6 +20,10 @@ def _gamma(r: torch.Tensor) -> torch.Tensor:
 
 def full_mask(x: torch.Tensor) -> torch.Tensor:
     return torch.ones_like(x, dtype=torch.int64)
+
+
+def empty_mask(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(x, dtype=torch.int64)
 
 
 def apply_mask(x: torch.Tensor, mask: torch.Tensor, mask_token: int):
@@ -91,8 +97,9 @@ def codebook_unmask(mask: torch.Tensor, n_conditioning_codebooks) -> torch.Tenso
     return torch.where(cb < n_conditioning_codebooks, 0, mask)
 
 
-def codebook_mask(mask: torch.Tensor, val1: int) -> torch.Tensor:
-    """Force regeneration of codebooks >= val1."""
+def codebook_mask(mask: torch.Tensor, val1: int, val2: Optional[int] = None) -> torch.Tensor:
+    """Force regeneration of codebooks >= val1. `val2` is accepted and
+    unused, as in the JAX function."""
     cb = torch.arange(mask.shape[1], device=mask.device)[None, :, None]
     return torch.where(cb >= val1, 1, mask)
 
@@ -101,6 +108,12 @@ def mask_and(mask1: torch.Tensor, mask2: torch.Tensor) -> torch.Tensor:
     if mask1.shape != mask2.shape:
         raise ValueError(f"mask shapes differ: {mask1.shape} vs {mask2.shape}")
     return torch.minimum(mask1, mask2)
+
+
+def mask_or(mask1: torch.Tensor, mask2: torch.Tensor) -> torch.Tensor:
+    if mask1.shape != mask2.shape:
+        raise ValueError(f"mask shapes differ: {mask1.shape} vs {mask2.shape}")
+    return torch.clamp(mask1 + mask2, 0, 1)
 
 
 def dropout(generator: torch.Generator, mask: torch.Tensor, p: float) -> torch.Tensor:
@@ -113,3 +126,11 @@ def dropout(generator: torch.Generator, mask: torch.Tensor, p: float) -> torch.T
     dropped = torch.zeros((t,), dtype=mask.dtype, device=mask.device)
     dropped[idxs] = 1
     return torch.maximum(mask, dropped[None, None, :])
+
+
+def time_stretch_mask(x: torch.Tensor, stretch_factor: int) -> torch.Tensor:
+    """The periodic mask that matches a repeat-interleave time stretch: keep
+    every `stretch_factor`-th step."""
+    if stretch_factor < 1:
+        raise ValueError(f"stretch factor must be >= 1, got {stretch_factor}")
+    return periodic_mask(x, stretch_factor, width=1)

@@ -17,7 +17,11 @@ residual adds.
 Two serving options, as in the JAX package: `quantization="int8"` runs every
 attention and FFN projection as a w8a8 matmul (`LoRADense(quantize=True)`),
 and `ffn_impl="fused"` runs each layer's RMSNorm, GEGLU feed-forward and
-residual add as one kernel (`ops/ffn_kernel.py`). Not ported yet:
+residual add as one kernel (`ops/ffn_kernel.py`). `attention_impl` picks the
+attention route (`ops/attention.py`): "auto" (the kernels on the card),
+"pallas", "xla" (the library call) or "ring" (not ported). `TransformerStack`
+takes an attention mask `x_mask` (b, t, t) or (b, 1, t, t), 0 = blocked, as
+the JAX stack does; `VampNetLM` passes none, as in JAX. Not ported yet:
 ControlEncoder, ring attention and remat.
 """
 from __future__ import annotations
@@ -29,7 +33,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.attention import dot_product_attention
+from ..ops.attention import IMPLS, dot_product_attention
+from ..ops.flash_attention import attention_mask
 from ..ops.ffn_kernel import fused_geglu_ffn
 from .activations import new_gelu
 from .layers import CodebookEmbedding, Dense
@@ -51,6 +56,7 @@ class LMConfig:
     lora_r: int = 0
     attention_num_buckets: int = 32
     attention_max_distance: int = 128
+    attention_impl: str = "auto"  # auto | pallas | xla | ring (ops/attention.py)
     ffn_impl: str = "auto"  # auto | xla | fused; "auto" is the unfused path, as in JAX
     quantization: Optional[str] = None  # None | "int8" (w8a8 projections)
     compute_dtype: str = "bfloat16"
@@ -152,7 +158,10 @@ class MultiHeadRelativeAttention(nn.Module):
     def __init__(self, d_model: int, n_head: int, has_relative_attention_bias: bool,
                  cfg: LMConfig, device=None):
         super().__init__()
+        if cfg.attention_impl not in IMPLS:
+            raise ValueError(f"attention_impl must be one of {IMPLS}, got {cfg.attention_impl!r}")
         self.n_head = n_head
+        self.attention_impl = cfg.attention_impl
         dense = lambda r: LoRADense(d_model, d_model, r=r, compute_dtype=cfg.dtype,
                                     quantize=cfg.quantization == "int8", device=device)
         # the key projection never takes adapters, as in the JAX package
@@ -163,13 +172,15 @@ class MultiHeadRelativeAttention(nn.Module):
                 torch.empty(cfg.attention_num_buckets, n_head, device=device)
             )
 
-    def forward(self, x: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, position_bias: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, d = x.shape
         shape = (b, t, self.n_head, d // self.n_head)
         q = self.w_qs(x).reshape(shape)
         k = self.w_ks(x).reshape(shape)
         v = self.w_vs(x).reshape(shape)
-        out = dot_product_attention(q, k, v, bias=position_bias)
+        out = dot_product_attention(q, k, v, bias=position_bias, mask=mask,
+                                    impl=self.attention_impl)
         return self.fc(out.reshape(b, t, d))
 
 
@@ -217,8 +228,9 @@ class TransformerLayer(nn.Module):
         self.feed_forward = FeedForward(d, cfg, device=device)
 
     def forward(self, x: torch.Tensor, position_bias: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = x + dropout(self.self_attn(self.norm_1(x), position_bias), self.p, generator)
+                generator: Optional[torch.Generator] = None,
+                x_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + dropout(self.self_attn(self.norm_1(x), position_bias, x_mask), self.p, generator)
         if self.fused_ffn:
             if generator is not None:
                 raise ValueError("ffn_impl='fused' needs no dropout generator, lora_r=0, no int8")
@@ -230,7 +242,9 @@ class TransformerLayer(nn.Module):
 
 
 class TransformerStack(nn.Module):
-    """n_layers layers (`layers_0` holds the bucket table) and a final norm."""
+    """n_layers layers (`layers_0` holds the bucket table) and a final norm.
+    `x_mask` (b, t, t) or (b, 1, t, t), 0 = blocked, reaches every layer's
+    attention; it is turned into the kernels' bool (b, t, t) once here."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
@@ -240,9 +254,12 @@ class TransformerStack(nn.Module):
         self.norm = RMSNorm(cfg.embedding_dim, device=device)
 
     def forward(self, x: torch.Tensor, position_bias: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                x_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x_mask is not None:
+            x_mask = attention_mask(x_mask, x)
         for i in range(self.n_layers):
-            x = getattr(self, f"layers_{i}")(x, position_bias, generator)
+            x = getattr(self, f"layers_{i}")(x, position_bias, generator, x_mask)
         return self.norm(x)
 
 

@@ -35,17 +35,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
 _SIGNATURES = {
-    # q, k, v, bias, bias_is_bf16, out, b, t, h, d, q_scale, device, stream
-    "vampnet_attention_fwd": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, bias, bias_is_bf16, out, lse, b, t, h, d, q_scale, device, stream
-    "vampnet_attention_fwd_lse": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, bias, bias_is_bf16, lse, do, delta, dk, dv, b, t, h, d, q_scale,
+    # q, k, v, bias, bias_is_bf16, mask (or null), out, b, t, h, d, q_scale,
     # device, stream
-    "vampnet_attention_bwd_dkdv": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, bias, bias_is_bf16, lse, do, delta, dq_acc, dbias, b, t, h, d,
+    "vampnet_attention_fwd": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias, bias_is_bf16, mask, out, lse, b, t, h, d, q_scale, device,
+    # stream
+    "vampnet_attention_fwd_lse": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias, bias_is_bf16, mask, lse, do, delta, dk, dv, b, t, h, d,
     # q_scale, device, stream
-    "vampnet_attention_bwd_dq_dbias": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+    "vampnet_attention_bwd_dkdv": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias, bias_is_bf16, mask, lse, do, delta, dq_acc, dbias, b, t,
+    # h, d, q_scale, device, stream
+    "vampnet_attention_bwd_dq_dbias": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _F, _I, _P),
     # x, x_is_bf16, w_q, w_scale, xq (scratch), a_scale (scratch), out,
     # out_is_bf16, m, n, k, device, stream
