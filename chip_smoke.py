@@ -5,13 +5,15 @@
 Phases, each of which must pass (no failure is caught):
   1. print the card (`nvidia-smi`);
   2. build the CUDA kernels from `vampnet_tpu_torch/csrc` (nvcc, one process
-     per source, started together) and print the build seconds;
+     per source, started together) and print the build seconds and each
+     kernel's registers and spills (the attention forward's 16 instances
+     apart);
   3. hold every kernel against its plain PyTorch version on the card, at the
      shapes the serving path (coarse and c2f), the long-context chunks
      (t = 948, 1,034, 1,723, 2,048), the masked path and the coarse training
      step (b=8, and b=16 once; masked with key padding; b=1 at t=2,048) give
      it, and time kernel, plain version and, where one exists, a single
-     PyTorch library call;
+     PyTorch library call (the attention forward also in TFLOP/s);
   4. serve full-width `Interface.vamp_e2e` requests (coarse 20 layers, c2f
      16 layers, d=1280, the 44.1 kHz codec; random weights from a seed) and
      check their outputs and the serving kernels' launch counts;
@@ -183,9 +185,10 @@ def check_attention(b, t, h, d, bias_dtype, gen, timed=True, mask=None):
         io_bytes += mask.numel()
     flops = 4 * h * open_entries * d
     tb, tf = io_bytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    ms = time_ms(lambda: flash_attention_with_bias(q, k, v, bias, mask))
     return dict(
         max_abs_err=float(err.max()),
-        ms=time_ms(lambda: flash_attention_with_bias(q, k, v, bias, mask)),
+        ms=ms, tflops=flops / ms * 1e-9,
         call_ms=call_ms(lambda: flash_attention_with_bias(q, k, v, bias, mask)),
         plain_ms=time_ms(lambda: attention_fwd_plain(q, k, v, bias, mask=mask), reps=5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
@@ -293,7 +296,8 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None, mask=Non
     fwd.update(bound(4 * act + bias_bytes + mask_bytes + rows, 2))
     dkdv.update(bound(6 * act + bias_bytes + mask_bytes + 2 * rows, 4))  # s, dp, dv, dk
     dqdb.update(bound(5 * act + 2 * bias_bytes + mask_bytes + 2 * rows, 3))  # s, dp, dq
-    fwd.update(ms=time_ms(lambda: fwd_k(q, k, v, bias, *margs)),
+    fwd_ms = time_ms(lambda: fwd_k(q, k, v, bias, *margs))
+    fwd.update(ms=fwd_ms, tflops=2 * prod / fwd_ms * 1e-9,
                call_ms=call_ms(lambda: fwd_k(q, k, v, bias, *margs)),
                plain_ms=time_ms(lambda: attention_fwd_lse_plain(q, k, v, bias, mask=mask),
                                 reps=5))
@@ -1057,6 +1061,15 @@ def main() -> int:
             print(f"build: {line.strip()}")
     for name, (regs, spill_st, spill_ld) in kernel_registers().items():
         print(f"build: {regs:3d} registers, spills {spill_st}/{spill_ld} B  {name}")
+    # the forward's 16 instances (D, bf16 bias, lse, mask): the count is per
+    # thread at launch; setmaxnreg then moves registers from the producer
+    # warpgroup to the two consumer warpgroups
+    fwd_regs = registers_of("attention_fwd_kernel")
+    if len(fwd_regs) != 16:
+        raise AssertionError(f"expected 16 attention forward instances, found {sorted(fwd_regs)}")
+    for name, (regs, spill_st, spill_ld) in fwd_regs.items():
+        print(f"build: attention forward {name.split()[-1]}: {regs} registers, spills "
+              f"{spill_st}/{spill_ld} B")
 
     # ---- 3. kernels against their plain versions ----
     codec_cfg, coarse_cfg, c2f_cfg = CodecConfig(), LMConfig.coarse(), LMConfig.c2f()
@@ -1251,8 +1264,8 @@ def main() -> int:
         )
 
     kernels = [
-        entry("attention_fwd", "vampnet_tpu_torch/csrc/attention_fwd.cu",
-              "vampnet_tpu/ops/flash_attention.py:120", attn),
+        dict(entry("attention_fwd", "vampnet_tpu_torch/csrc/attention_fwd.cu",
+                   "vampnet_tpu/ops/flash_attention.py:120", attn), registers=fwd_regs),
         dict(entry("attention_fwd_masked", "vampnet_tpu_torch/csrc/attention_fwd.cu",
                    "vampnet_tpu/ops/flash_attention.py:93", results["attention_fwd_masked"]),
              also_replaces="without a mask at 896 < t <= 1024: attention_fwd (K1) at t948",

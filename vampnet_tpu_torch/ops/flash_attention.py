@@ -35,10 +35,10 @@ launches:
     `_attn_kernel_dt` (`vampnet_tpu/ops/flash_attention.py:120`), which every
     layer of every MaskGIT step runs on the TPU, and `_attn_kernel` (`:93`)
     where JAX takes it without a mask (896 < t <= 1024, q blocks of 128).
-    Per coarse serving call (b=2, t=861, h=20) q, k, v and o are 4 x 2.2 MB
-    of bf16 and the bias 29.6 MB in bf16: about 38 MB, 11 us at 3.35 TB/s,
-    against 7.6 GFLOP, 8 us at 989 TFLOP/s. So the bias read bounds it; the
-    kernel reads the bias once per batch row.
+    Per coarse serving call (b=2, t=862, h=20, d=64) q, k, v and o are
+    4 x 4.41 MB of bf16 and the bias 29.7 MB in bf16: 47.4 MB, 14 us at
+    3.35 TB/s, against 7.6 GFLOP, 8 us at 989 TFLOP/s. So the bias read
+    bounds it; the kernel reads it from device memory about once per head.
   * `attention_fwd_masked` (K3): a mask, t <= `MAX_SINGLE_PASS_SEQ`.
     Replaces `_attn_kernel` (`:93`) over the per-(b*h) bias. The same
     kernel reads the head-shared bias and the batch row's mask bytes. At the
@@ -49,8 +49,7 @@ launches:
     (`:47`). The K1 kernel streams keys with an online softmax and has no
     upper t, so it is the same kernel. At b=2, t=1,723, h=20 with a bf16
     bias: q, k, v, o 35 MB and the bias 119 MB, 46 us if the bias is read
-    once, against 30.4 GFLOP, 31 us: bound by bytes; the kernel reads the
-    bias once per batch row (272 MB).
+    once, against 30.4 GFLOP, 31 us: bound by bytes.
 
 Training, the `_AttentionCore` Function (the counterpart of the JAX custom
 VJP `_attention_core`, `flash_attention.py:546-848`), at every t:
@@ -74,7 +73,7 @@ VJP `_attention_core`, `flash_attention.py:546-848`), at every t:
   forward moves about 130 MB if the bias is read once (39 us) against
   15.2 GFLOP (15 us): bound by bytes. The backward needs 5 score-sized
   products (38 GFLOP, 39 us) and moves about 243 MB (73 us): bound by bytes
-  too. The forward reads the bias once per batch row (8x at b=8); the
+  too. The forward's blocks read the bias in L2 once per head; the
   dq/dbias kernel reads it once and writes dbias once, summing over the
   batch in registers; the dk/dv kernel reads it once per batch row, through
   shared memory. The pair does 7 products where the bound counts 5. A mask
@@ -82,12 +81,21 @@ VJP `_attention_core`, `flash_attention.py:546-848`), at every t:
 
 What the design does about the TPU's layout: the TPU kernels hold a whole
 (t_p, t_p) score tile per program in up to 100 MB of VMEM; an SM has 227 KB.
-So every kernel here works on 64 x 64 tiles with 4 warps of `mma.sync`
-m16n8k16 (bf16 in, fp32 accumulate): the forward streams keys with an online
-softmax; dk/dv walks query tiles for one key tile; dq/dbias walks the batch
-for one (query tile, key tile) and adds dq into an fp32 buffer with atomics.
-TMA, `wgmma`, double buffering, 512-wide blocks for long sequences and one
-fused backward pass are later work.
+So every kernel here streams 64-key tiles with an online softmax or walks
+tiles of 64 x 64. The forward is warp specialised for Hopper: a block of
+three warpgroups owns 128 query rows of one (batch row, head); a producer
+warpgroup keeps a ring of key tiles in flight, K and V by TMA (4-D tensor
+maps, so rows past t arrive as zeros), the bias and mask tiles by TMA where
+a row of t elements is a multiple of 16 bytes, else row by row (a bulk copy
+per bias row, 16-byte cp.async for the mask). Two consumer warpgroups run
+both products on `wgmma` (S = b_2 + Q K^T from shared memory, the
+accumulator seeded with the prefolded bias; O += P V with P in registers)
+and the softmax on the accumulators. The blocks of one (head, query tile)
+are launched together, the batch row innermost, so L2 serves the bias strip
+to all but the first. The backward kernels use 4 warps of `mma.sync`
+m16n8k16 (bf16 in, fp32 accumulate): dk/dv walks query tiles for one key
+tile; dq/dbias walks the batch for one (query tile, key tile) and adds dq
+into an fp32 buffer with atomics. One fused backward pass is later work.
 """
 from __future__ import annotations
 
