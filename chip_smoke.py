@@ -7,13 +7,15 @@ Phases, each of which must pass (no failure is caught):
   2. build the CUDA kernels from `vampnet_tpu_torch/csrc` (nvcc, one process
      per source, started together) and print the build seconds and each
      kernel's registers and spills (the attention forward's 16 instances
-     apart);
+     apart, the backward's 8 counted);
   3. hold every kernel against its plain PyTorch version on the card, at the
      shapes the serving path (coarse and c2f), the long-context chunks
      (t = 948, 1,034, 1,723, 2,048), the masked path and the coarse training
      step (b=8, and b=16 once; masked with key padding; b=1 at t=2,048) give
      it, and time kernel, plain version and, where one exists, a single
-     PyTorch library call (the attention forward also in TFLOP/s);
+     PyTorch library call (the attention kernels also in TFLOP/s); the
+     backward kernel, called twice on the same inputs, must repeat dk, dv
+     and dbias bit for bit;
   4. serve full-width `Interface.vamp_e2e` requests (coarse 20 layers, c2f
      16 layers, d=1280, the 44.1 kHz codec; random weights from a seed) and
      check their outputs and the serving kernels' launch counts;
@@ -206,26 +208,26 @@ def rel_err(x, ref):
 
 def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None, mask=None):
     """The training kernels at (b, t, h, d): forward-with-lse against its
-    plain version, then the dk/dv and dq/dbias kernels against theirs on the
-    same (out, lse, do). The bias is fp32 (training) or `bias_dtype`; with a
-    `mask` the masked kernels (K4 over K3's scores, K5) run. Returns one
-    result per kernel, keyed by the wrapper's name."""
+    plain version, then the backward kernel against its plain version on the
+    same (out, lse, do), and a second backward call on the same inputs: dk, dv
+    and dbias must repeat bit for bit (whether dq does is reported). The bias
+    is fp32 (training) or `bias_dtype`; with a `mask` the masked routes (K4
+    over K3's scores, K5) run. Returns one result per kernel, keyed by the
+    wrapper's name."""
     import torch
     import torch.nn.functional as F
 
     from vampnet_tpu_torch.ops import flash_attention as fa
     from vampnet_tpu_torch.ops.flash_attention import (
         LOG2E,
-        attention_bwd_dkdv_plain,
-        attention_bwd_dq_dbias_plain,
+        attention_bwd_fused_plain,
         attention_delta,
         attention_fwd_lse_plain,
     )
 
     sfx = "" if mask is None else "_masked"
-    names = [f"attention_fwd_lse{sfx}", f"attention_bwd_dkdv{sfx}",
-             f"attention_bwd_dq_dbias{sfx}"]
-    fwd_k, dkdv_k, dqdb_k = (getattr(fa, n) for n in names)
+    names = [f"attention_fwd_lse{sfx}", f"attention_bwd_fused{sfx}"]
+    fwd_k, bwd_k = (getattr(fa, n) for n in names)
     margs = () if mask is None else (mask,)
     dev = "cuda"
     q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -235,17 +237,17 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None, mask=Non
     ref_out, ref_lse = attention_fwd_lse_plain(q, k, v, bias, mask=mask)
     delta = attention_delta(out, do)
     bwd_args = (q, k, v, bias, lse, do, delta)
-    dk, dv = dkdv_k(*bwd_args, *margs)
-    dq, dbias = dqdb_k(*bwd_args, *margs)
-    ref_dk, ref_dv = attention_bwd_dkdv_plain(*bwd_args, mask=mask)
-    ref_dq, ref_dbias = attention_bwd_dq_dbias_plain(*bwd_args, mask=mask)
+    grads = bwd_k(*bwd_args, *margs)
+    again = bwd_k(*bwd_args, *margs)
+    refs = attention_bwd_fused_plain(*bwd_args, mask)
     torch.cuda.synchronize()
+    dq, dk, dv, dbias = grads
     for name, x in (("out", out), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv),
                     ("dbias", dbias)):
         if not torch.isfinite(x.float()).all():
             raise AssertionError(f"training attention kernels: non-finite {name}")
     if dbias.dtype != bias.dtype or dq.shape != q.shape or dk.shape != k.shape:
-        raise AssertionError(f"backward kernels: dbias {dbias.dtype} for a {bias.dtype} bias, "
+        raise AssertionError(f"backward kernel: dbias {dbias.dtype} for a {bias.dtype} bias, "
                              f"dq {tuple(dq.shape)}, dk {tuple(dk.shape)}")
     out_err = (out.float() - ref_out.float()).abs()
     lse_err = float((lse - ref_lse).abs().max())
@@ -254,13 +256,14 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None, mask=Non
     if bool((out_err > 2e-2 + 2e-2 * ref_out.float().abs()).any()) or not lse_err <= 1e-3:
         raise AssertionError(f"forward-with-lse disagrees: out max abs err "
                              f"{float(out_err.max())}, lse max abs err {lse_err}")
-    errs = {"dq": rel_err(dq, ref_dq), "dk": rel_err(dk, ref_dk), "dv": rel_err(dv, ref_dv),
-            "dbias": rel_err(dbias, ref_dbias)}
-    # bf16 products on both sides; the kernels round P and dS against the
-    # same lse, but sum in another order (dq with fp32 atomics). Each limit
-    # sits a few times above the readings of sound kernels on an H100 at
-    # b=8 and b=16 (dk 9.8e-5, dv 9.1e-5, dq 2.8e-3, dbias 2.9e-7), so a
-    # kernel that lost its fp32 accumulation or stored dbias in bf16 fails
+    grad_names = ("dq", "dk", "dv", "dbias")
+    errs = {n: rel_err(x, r) for n, x, r in zip(grad_names, grads, refs)}
+    # bf16 products on both sides; the kernel rounds P and dS against the
+    # same lse as the plain version, but sums in another order (dq across key
+    # tiles by fp32 reduce-adds). Each limit sits a few times above the
+    # readings of sound kernels on an H100 at b=8 and b=16 (dk 9.8e-5, dv
+    # 9.1e-5, dq 2.8e-3, dbias 2.9e-7), so a kernel that lost its fp32
+    # accumulation or stored dbias in bf16 fails
     limits = {"dq": 1e-2, "dk": 1e-3, "dv": 1e-3, "dbias": 1e-5}
     if bias.dtype == torch.bfloat16:
         # a bf16 dbias is rounded twice to bf16 after fp32 sums in another
@@ -269,16 +272,18 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None, mask=Non
         # reading on an H100 (3.7e-5 to 4.0e-5 at b=2)
         limits["dbias"] = 2e-4
     if any(errs[n] > limits[n] for n in errs):
-        raise AssertionError(f"backward kernels disagree (rel Frobenius): {errs}")
+        raise AssertionError(f"backward kernel disagrees (rel Frobenius): {errs}")
+    # dk, dv and dbias are summed in a fixed order: a repeat is bit for bit
+    same = {n: torch.equal(x, y) for n, x, y in zip(grad_names, grads, again)}
+    if not (same["dk"] and same["dv"] and same["dbias"]):
+        raise AssertionError(f"backward kernel: a second call on the same inputs differs: {same}")
     fwd = dict(max_abs_err=float(out_err.max()), lse_max_abs_err=lse_err)
-    dkdv = dict(max_abs_err=max(float((dk.float() - ref_dk.float()).abs().max()),
-                                float((dv.float() - ref_dv.float()).abs().max())),
-                rel_err_dk=errs["dk"], rel_err_dv=errs["dv"])
-    dqdb = dict(max_abs_err=max(float((dq.float() - ref_dq.float()).abs().max()),
-                                float((dbias.float() - ref_dbias.float()).abs().max())),
-                rel_err_dq=errs["dq"], rel_err_dbias=errs["dbias"])
+    bwd = dict(max_abs_err=max(float((x.float() - r.float()).abs().max())
+                               for x, r in zip(grads, refs)),
+               **{f"rel_err_{n}": errs[n] for n in grad_names},
+               dq_bitwise_repeat=same["dq"])
     if not timed:
-        return dict(zip(names, (fwd, dkdv, dqdb)))
+        return dict(zip(names, (fwd, bwd)))
 
     # bounds: each input read once, each output written once; one score-sized
     # product is 2 h d operations per (query, key) entry, counted at the open
@@ -294,8 +299,8 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None, mask=Non
         return dict(bound_ms=1e3 * max(tb, tf), bound_by="bytes" if tb >= tf else "operations")
 
     fwd.update(bound(4 * act + bias_bytes + mask_bytes + rows, 2))
-    dkdv.update(bound(6 * act + bias_bytes + mask_bytes + 2 * rows, 4))  # s, dp, dv, dk
-    dqdb.update(bound(5 * act + 2 * bias_bytes + mask_bytes + 2 * rows, 3))  # s, dp, dq
+    # q, k, v, do, bias, lse, delta read, dq, dk, dv, dbias written, 5 products
+    bwd.update(bound(7 * act + 2 * bias_bytes + mask_bytes + 2 * rows, 5))
     fwd_ms = time_ms(lambda: fwd_k(q, k, v, bias, *margs))
     fwd.update(ms=fwd_ms, tflops=2 * prod / fwd_ms * 1e-9,
                call_ms=call_ms(lambda: fwd_k(q, k, v, bias, *margs)),
@@ -326,13 +331,10 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None, mask=Non
     fwd.update(library_ms=time_ms(lib_fwd), library_lse_max_abs_err=lib_err,
                library_note="aten._scaled_dot_product_efficient_attention with "
                             "compute_log_sumexp, bf16 bias")
-    dkdv.update(ms=time_ms(lambda: dkdv_k(*bwd_args, *margs)),
-                call_ms=call_ms(lambda: dkdv_k(*bwd_args, *margs)),
-                plain_ms=time_ms(lambda: attention_bwd_dkdv_plain(*bwd_args, mask=mask), reps=5))
-    dqdb.update(ms=time_ms(lambda: dqdb_k(*bwd_args, *margs)),
-                call_ms=call_ms(lambda: dqdb_k(*bwd_args, *margs)),
-                plain_ms=time_ms(lambda: attention_bwd_dq_dbias_plain(*bwd_args, mask=mask),
-                                 reps=5))
+    bwd_ms = time_ms(lambda: bwd_k(*bwd_args, *margs))
+    bwd.update(ms=bwd_ms, tflops=5 * prod / bwd_ms * 1e-9,
+               call_ms=call_ms(lambda: bwd_k(*bwd_args, *margs)),
+               plain_ms=time_ms(lambda: attention_bwd_fused_plain(*bwd_args, mask), reps=5))
 
     # the library yardstick for the backward: autograd through one
     # scaled_dot_product_attention call, the bias expanded to a (b, h, t, t)
@@ -346,16 +348,12 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None, mask=Non
         raise AssertionError("the library backward gave no finite mask gradient")
     lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt, lib_mask), lib_do,
                                                  retain_graph=True), reps=5)
-    note = "whole backward (dq, dk, dv, dmask (b, h, t, t)) of one SDPA call"
-    for res in (dkdv, dqdb):
-        res.update(library_ms=lib_ms, library_note=note)
-    # the backward as one function: q, k, v, do, bias, lse, delta read,
-    # dq, dk, dv, dbias written, 5 products
-    pair = bound(7 * act + 2 * bias_bytes + mask_bytes + 2 * rows, 5)
-    print(f"kernel attention backward pair{sfx} b={b} t={t}: {dkdv['ms'] + dqdb['ms']:.4f} ms, "
-          f"bound {pair['bound_ms']:.4f} ms ({pair['bound_by']}), library backward "
-          f"{lib_ms:.4f} ms")
-    return dict(zip(names, (fwd, dkdv, dqdb)))
+    bwd.update(library_ms=lib_ms,
+               library_note="whole backward (dq, dk, dv, dmask (b, h, t, t)) of one SDPA call")
+    print(f"kernel attention backward{sfx} b={b} t={t}: {bwd_ms:.4f} ms "
+          f"({bwd['tflops']:.0f} TFLOP/s), bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}), "
+          f"library backward {lib_ms:.4f} ms, dq bit for bit on a repeat: {same['dq']}")
+    return dict(zip(names, (fwd, bwd)))
 
 
 def check_sampler(b, flat, gen):
@@ -404,8 +402,8 @@ def check_sampler(b, flat, gen):
 def kernel_registers():
     """{kernel: (registers, spill store bytes, spill load bytes)} from
     ptxas's report in the build logs; a kernel is named by its function name
-    and its mangled template arguments, as in `attention_bwd_dkdv_kernel
-    ILi128ELb0E` (D = 128, fp32 bias)."""
+    and its mangled template arguments, as in `attention_bwd_kernel
+    ILi128ELb0ELb0E` (D = 128, fp32 bias, no mask)."""
     import re
 
     from vampnet_tpu_torch.ops import build
@@ -655,8 +653,7 @@ def train_full_width(codec, codebooks, gen):
 
     from vampnet_tpu_torch.modules import LMConfig, VampNetLM
     from vampnet_tpu_torch.ops.flash_attention import (
-        attention_bwd_dkdv,
-        attention_bwd_dq_dbias,
+        attention_bwd_fused,
         attention_fwd_lse,
         flash_attention_with_bias,
     )
@@ -676,8 +673,7 @@ def train_full_width(codec, codebooks, gen):
           f"dropout {cfg.dropout}, compute {cfg.compute_dtype}")
     dgen = torch.Generator(device="cuda")
     dgen.manual_seed(SEED)
-    counters = {"attention_fwd_lse": attention_fwd_lse, "attention_bwd_dkdv": attention_bwd_dkdv,
-                "attention_bwd_dq_dbias": attention_bwd_dq_dbias}
+    counters = {"attention_fwd_lse": attention_fwd_lse, "attention_bwd_fused": attention_bwd_fused}
     for c in (*counters.values(), flash_attention_with_bias):
         c.launches = 0
     walls, peaks = [], []
@@ -735,7 +731,7 @@ def check_train_against_cpu(gen, device="cuda"):
 
     from vampnet_tpu_torch import mask as pmask
     from vampnet_tpu_torch.modules import LMConfig, VampNetLM
-    from vampnet_tpu_torch.ops.flash_attention import attention_bwd_dq_dbias
+    from vampnet_tpu_torch.ops.flash_attention import attention_bwd_fused
     from vampnet_tpu_torch.train import loss_and_grads
     from vampnet_tpu_torch.util import codebook_flatten
 
@@ -751,10 +747,10 @@ def check_train_against_cpu(gen, device="cuda"):
     r = torch.tensor([0.4, 0.7])
     z_masked, mask = pmask.apply_mask(z, pmask.random(cpu_gen, z, r), cfg.mask_token)
     batch = (z_masked, cbs, z, codebook_flatten(mask), r)
-    n0 = attention_bwd_dq_dbias.launches
+    n0 = attention_bwd_fused.launches
     loss, _, grads = loss_and_grads(lm, *(x.to(device) for x in batch))
     loss32, _, grads32 = loss_and_grads(lm32, *batch)
-    if device == "cuda" and attention_bwd_dq_dbias.launches - n0 != cfg.n_layers:
+    if device == "cuda" and attention_bwd_fused.launches - n0 != cfg.n_layers:
         raise AssertionError("the small training step did not go through the kernels")
     loss_err = abs(float(loss) - float(loss32)) / abs(float(loss32))
     names = [n for n, p in lm.named_parameters() if p.requires_grad]
@@ -886,9 +882,8 @@ def masked_stack_full_width(gen, t, valid):
     x = torch.randn((b, t, d), generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randn((b, t, d), generator=gen, device="cuda")
     mask = key_padding_mask(b, t, valid)
-    names = ("attention_fwd_lse_masked", "attention_bwd_dkdv_masked",
-             "attention_bwd_dq_dbias_masked", "attention_fwd_masked", "attention_fwd_lse",
-             "attention_bwd_dkdv", "attention_bwd_dq_dbias", "attention_fwd_long")
+    names = ("attention_fwd_lse_masked", "attention_bwd_fused_masked", "attention_fwd_masked",
+             "attention_fwd_lse", "attention_bwd_fused", "attention_fwd_long")
     counters = {n: getattr(fa, n) for n in names}
     counters["attention_fwd"] = fa.flash_attention_with_bias
     for c in counters.values():
@@ -904,8 +899,7 @@ def masked_stack_full_width(gen, t, valid):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     made_train = {n: c.launches for n, c in counters.items()}
     want = dict.fromkeys(counters, 0)
-    want.update(attention_fwd_lse_masked=cfg.n_layers, attention_bwd_dkdv_masked=cfg.n_layers,
-                attention_bwd_dq_dbias_masked=cfg.n_layers)
+    want.update(attention_fwd_lse_masked=cfg.n_layers, attention_bwd_fused_masked=cfg.n_layers)
     if made_train != want:
         raise AssertionError(f"masked stack forward and backward: launches {made_train}, "
                              f"want {want}")
@@ -939,7 +933,7 @@ def masked_stack_full_width(gen, t, valid):
                   peak_gib=peak, launches_forward_backward=made_train,
                   launches_inference=made_inf)
     print("masked stack: " + json.dumps(result))
-    launches = {n: made_train[n] for n in names[:3]}
+    launches = {n: made_train[n] for n in names[:2]}
     launches["attention_fwd_masked"] = made_inf["attention_fwd_masked"]
     return result, launches
 
@@ -975,11 +969,10 @@ def check_small_lms_against_cpu(gen):
         grads = torch.autograd.grad((out.float() * w.to(dev)).sum(), params)
         return out.detach().float().cpu(), [g.float().cpu() for g in grads]
 
-    counters = (fa.attention_fwd_lse_masked, fa.attention_bwd_dkdv_masked,
-                fa.attention_bwd_dq_dbias_masked)
+    counters = (fa.attention_fwd_lse_masked, fa.attention_bwd_fused_masked)
     before = [c.launches for c in counters]
     out, grads = run(lm, "cuda", torch.bfloat16)
-    if [c.launches - n for c, n in zip(counters, before)] != [cfg.n_layers] * 3:
+    if [c.launches - n for c, n in zip(counters, before)] != [cfg.n_layers] * 2:
         raise AssertionError("the small masked stack did not go through the masked kernels")
     out32, grads32 = run(lm32, "cpu", torch.float32)
     names = [n for n, _ in lm.transformer.named_parameters()]
@@ -1070,6 +1063,10 @@ def main() -> int:
     for name, (regs, spill_st, spill_ld) in fwd_regs.items():
         print(f"build: attention forward {name.split()[-1]}: {regs} registers, spills "
               f"{spill_st}/{spill_ld} B")
+    # the backward's 8 instances (D, bf16 bias, mask), set up the same way
+    bwd_regs = registers_of("attention_bwd_kernel")
+    if len(bwd_regs) != 8:
+        raise AssertionError(f"expected 8 attention backward instances, found {sorted(bwd_regs)}")
 
     # ---- 3. kernels against their plain versions ----
     codec_cfg, coarse_cfg, c2f_cfg = CodecConfig(), LMConfig.coarse(), LMConfig.c2f()
@@ -1278,35 +1275,33 @@ def main() -> int:
               "vampnet_tpu/ops/sampler_kernel.py:80", samp),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    for name, source, replaces, also in (
-        ("attention_fwd_lse", "attention_fwd.cu", ":254",
-         "_attn_kernel_fwd_lse_dt :153 (same out and lse)"),
-        ("attention_bwd_dkdv", "attention_bwd.cu", ":336",
-         "with attention_bwd_dq_dbias: _attn_kernel_bwd_wholeseq :428"),
-        ("attention_bwd_dq_dbias", "attention_bwd.cu", ":381",
-         "with attention_bwd_dkdv: _attn_kernel_bwd_wholeseq :428"),
+    for name, replaces, also in (
+        ("attention_fwd_lse", ":254", "_attn_kernel_fwd_lse_dt :153 (same out and lse)"),
+        ("attention_bwd_fused", ":428",
+         "_attn_kernel_bwd_wholeseq's one pass; the split pair _attn_kernel_bwd_dkdv :336 and "
+         "_attn_kernel_bwd_dq_dbias :381 (the same function)"),
     ):
         res = train_k[name]
         kernels.append(dict(
-            name=name, route="cuda", source=f"vampnet_tpu_torch/csrc/{source}",
+            name=name, route="cuda",
+            source=f"vampnet_tpu_torch/csrc/attention_{name.split('_')[1]}.cu",
             replaces=f"vampnet_tpu/ops/flash_attention.py{replaces}", also_replaces=also,
             launches=launches[name], **{k: res[k] for k in keys},
             shape=f"b={TRAIN_BATCH} t={t_coarse} h={coarse_cfg.n_heads} d={d_head}",
             library_note=res.get("library_note"),
             b16={k: v for k, v in train_k16[name].items()},
             b1_t2048={k: v for k, v in train_k2048[name].items()},
+            **({"registers": bwd_regs} if name == "attention_bwd_fused" else {}),
         ))
-    for name, source, replaces, also in (
-        ("attention_fwd_lse_masked", "attention_fwd.cu", ":254",
+    for name, replaces, also in (
+        ("attention_fwd_lse_masked", ":254",
          "over the per-(b*h) bias that :913-921 folds the mask into (K3's scores)"),
-        ("attention_bwd_dkdv_masked", "attention_bwd.cu", ":279",
-         "with attention_bwd_dq_dbias_masked: K5's dk and dv"),
-        ("attention_bwd_dq_dbias_masked", "attention_bwd.cu", ":279",
-         "with attention_bwd_dkdv_masked: K5's dq and its dbias summed over the batch"),
+        ("attention_bwd_fused_masked", ":279", "K5's dq, dk, dv and its dbias summed over the batch"),
     ):
         res = masked_k[name]
         kernels.append(dict(
-            name=name, route="cuda", source=f"vampnet_tpu_torch/csrc/{source}",
+            name=name, route="cuda",
+            source=f"vampnet_tpu_torch/csrc/attention_{name.split('_')[1]}.cu",
             replaces=f"vampnet_tpu/ops/flash_attention.py{replaces}", also_replaces=also,
             launches=launches[name], **{k: res[k] for k in keys},
             shape=f"b={TRAIN_BATCH} t={t_coarse} h={coarse_cfg.n_heads} d={d_head}, "

@@ -7,7 +7,8 @@ t = 77 and t = 150 are not multiples of 128, so the JAX side pads keys (with
 a -1e9 bias) and the port excludes them itself: the key mask is exercised.
 The routes of the JAX VJP are each reached: K4 (default forward), K2 (the
 (d,t)-major forward, `_DT_TRAIN_FWD`), K8 (whole-sequence backward) and the
-K6/K7 pair (`block_q=64`, so the padded length 256 exceeds the q block).
+K6/K7 pair (`block_q=64`, so the padded length 256 exceeds the q block); the
+port's one backward kernel computes the function of both.
 """
 import jax
 import jax.numpy as jnp
@@ -19,10 +20,11 @@ from vampnet_tpu.ops import flash_attention as jfa
 from vampnet_tpu_torch.ops import build
 from vampnet_tpu_torch.ops.flash_attention import (
     LOG2E,
-    attention_bwd_dkdv,
+    attention_bwd,
     attention_bwd_dkdv_plain,
-    attention_bwd_dq_dbias,
     attention_bwd_dq_dbias_plain,
+    attention_bwd_fused,
+    attention_bwd_fused_masked,
     attention_bwd_plain,
     attention_delta,
     attention_fwd_lse,
@@ -144,8 +146,8 @@ def test_function_gradcheck_float64():
 
 
 def test_cpu_path_launches_no_kernel():
-    counters = (flash_attention_with_bias, attention_fwd_lse, attention_bwd_dkdv,
-                attention_bwd_dq_dbias)
+    counters = (flash_attention_with_bias, attention_fwd_lse, attention_bwd_fused,
+                attention_bwd_fused_masked)
     before = [c.launches for c in counters]
     q, k, v, bias, w = _inputs(1, 40, seed=6)
     _port_grads(q, k, v, bias, w)
@@ -167,6 +169,32 @@ def test_wrappers_on_cpu_take_the_plain_versions():
     (attention_fwd_lse_plain(*leaves)[0] * w).sum().backward()
     for name, g, ref in zip(("dq", "dk", "dv", "dbias"), (dq, dk, dv, dbias), leaves):
         torch.testing.assert_close(g, ref.grad, rtol=1e-4, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_cpu_backward_is_the_plain_pair_and_launches_nothing(masked, bias_dtype):
+    # on CPU tensors the one backward route is the two plain halves, exactly
+    b, t = 2, 37
+    q, k, v, bias, w = _inputs(b, t, seed=11)
+    q, k, v, w = (_t(x, torch.bfloat16) for x in (q, k, v, w))
+    bias = _t(bias, bias_dtype)
+    mask = None
+    if masked:
+        m = np.random.default_rng(12).random((b, t, t)) > 1 / 3
+        m[:, np.arange(t), np.arange(t)] = True
+        mask = torch.from_numpy(m)
+    out, lse = attention_fwd_lse_plain(q, k, v, bias, mask=mask)
+    counters = (attention_bwd_fused, attention_bwd_fused_masked)
+    before = [c.launches for c in counters]
+    got = attention_bwd(q, k, v, bias, out, lse, w, mask)
+    assert [c.launches for c in counters] == before
+    delta = attention_delta(out, w)
+    want = attention_bwd_dq_dbias_plain(q, k, v, bias, lse, w, delta, mask=mask)
+    want = (want[0], *attention_bwd_dkdv_plain(q, k, v, bias, lse, w, delta, mask=mask), want[1])
+    for name, g, ref in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert g.dtype == ref.dtype and torch.equal(g, ref), name
+    assert got[3].dtype == bias_dtype
 
 
 def test_forward_only_kernels_refuse_inputs_that_require_grad():

@@ -255,8 +255,7 @@ def test_masks_of_another_shape_or_device_are_refused():
 
 def test_cpu_masked_path_launches_no_kernel():
     counters = (fa.flash_attention_with_bias, fa.attention_fwd_masked, fa.attention_fwd_long,
-                fa.attention_fwd_lse_masked, fa.attention_bwd_dkdv_masked,
-                fa.attention_bwd_dq_dbias_masked)
+                fa.attention_fwd_lse_masked, fa.attention_bwd_fused_masked)
     before = [c.launches for c in counters]
     q, k, v, bias, w = _inputs(1, 30, seed=9)
     mask = _t(_mask(1, 30, "random"))

@@ -154,25 +154,6 @@ __device__ __forceinline__ float2 smem_bias2(const unsigned char* row, int c) {
   }
 }
 
-// The producer's copy of one bias row window into shared memory:
-// ROW bytes from the 16-byte boundary at or below `addr`, to be brought by
-// one bulk copy (returned, in bytes, for the caller to count on the stage's
-// barrier first). Nothing at or past `end` is read: where the window reaches
-// it, the bulk copy stops at the last 16-byte boundary before it, and the
-// tensor's last few bytes are copied here with plain loads and stores (the
-// caller's arrival on the barrier publishes them).
-template <int ROW>
-__device__ __forceinline__ uint32_t row_window(unsigned char* dst, uintptr_t addr, uintptr_t end,
-                                               uintptr_t& src) {
-  src = addr & ~uintptr_t(15);
-  const uintptr_t end16 = end & ~uintptr_t(15);
-  if (src + ROW <= end16) return ROW;
-  if (end > end16 && end16 >= src && end16 < src + ROW) {
-    for (uintptr_t a = end16; a < end; ++a) dst[a - src] = *reinterpret_cast<const uint8_t*>(a);
-  }
-  return end16 > src ? (uint32_t)(end16 - src) : 0u;
-}
-
 template <int D, bool BIAS_BF16, bool WITH_LSE, bool MASKED>
 __global__ void __launch_bounds__(Plan<D, BIAS_BF16, MASKED>::THREADS, 1) attention_fwd_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,

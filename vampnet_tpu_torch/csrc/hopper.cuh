@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks in raw PTX, for the warp-specialised
-// attention forward (attention_fwd.cu): mbarriers, TMA tile loads, cp.async
-// copies that arrive on an mbarrier, wgmma with its shared-memory matrix
-// descriptors, register hand-over between warpgroups (setmaxnreg), and the
-// host-side encoding of a TMA tensor map.
+// attention kernels (attention_fwd.cu, attention_bwd.cu): mbarriers, TMA tile
+// loads and reduce-adds, bulk copies of unaligned rows, cp.async copies that
+// arrive on an mbarrier, wgmma with its shared-memory matrix descriptors,
+// register hand-over between warpgroups (setmaxnreg), and the host-side
+// encoding of a TMA tensor map.
 #pragma once
 
 #include <cuda.h>
@@ -106,6 +107,116 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int s
                : "memory");
 }
 
+// Waits until every cp.async this thread issued has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The producer's copy of one row window into shared memory: ROW bytes from
+// the 16-byte boundary at or below `addr`, to be brought by one bulk copy
+// (returned, in bytes, for the caller to count on the stage's barrier
+// first). Nothing at or past `end` is read: where the window reaches it, the
+// bulk copy stops at the last 16-byte boundary before it, and the tensor's
+// last few bytes are copied here with plain loads and stores (the caller's
+// arrival on the barrier publishes them).
+template <int ROW>
+__device__ __forceinline__ uint32_t row_window(unsigned char* dst, uintptr_t addr, uintptr_t end,
+                                               uintptr_t& src) {
+  src = addr & ~uintptr_t(15);
+  const uintptr_t end16 = end & ~uintptr_t(15);
+  if (src + ROW <= end16) return ROW;
+  if (end > end16 && end16 >= src && end16 < src + ROW) {
+    for (uintptr_t a = end16; a < end; ++a) dst[a - src] = *reinterpret_cast<const uint8_t*>(a);
+  }
+  return end16 > src ? (uint32_t)(end16 - src) : 0u;
+}
+
+// TMA: adds a tile of fp32 in shared memory into a 4-D tensor map's box in
+// global memory (the add is done at L2; elements out of bounds are skipped).
+// Completion is tracked by bulk groups: commit, then wait before the tile is
+// written again.
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Orders this thread's async-proxy accesses to global memory (bulk copies,
+// reduce-adds that have completed) before its later generic-proxy ones.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// L2 eviction policies for the cache hints below: evict_last for data a
+// kernel comes back to, evict_first for data read once.
+__device__ __forceinline__ uint64_t policy_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+// As bulk_load, with an L2 cache policy.
+__device__ __forceinline__ void bulk_load_hint(uint32_t dst, const void* src, uint32_t bytes,
+                                               uint32_t bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16) shared -> global, both addresses
+// 16-byte aligned, with an L2 cache policy, tracked by bulk groups.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes,
+                                           uint64_t policy) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n" ::
+                   "l"(dst),
+               "r"(src), "r"(bytes), "l"(policy)
+               : "memory");
+}
+
+// As bulk_store, adding fp32 values into global memory (the add is done at
+// L2).
+__device__ __forceinline__ void bulk_reduce_add_f32(void* dst, uint32_t src, uint32_t bytes,
+                                                    uint64_t policy) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.L2::cache_hint.add.f32 [%0], [%1], %2, "
+      "%3;\n" ::"l"(dst),
+      "r"(src), "r"(bytes), "l"(policy)
+      : "memory");
+}
+
+// 8 bytes global -> shared, both addresses 8-byte aligned, with an L2 cache
+// policy.
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src, uint64_t policy) {
+  asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "l"(policy)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are pending: with READ,
+// only until their shared-memory sources have been read.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ) {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+  }
+}
+
 // An arrival on `bar` once every cp.async this thread issued so far has
 // landed; it counts as one of the arrivals the barrier was initialised with.
 __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
@@ -200,6 +311,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VN_R32
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : VN_ACC32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// As wgmma_m64n64k16_ss with both A and B MN-major: A (64 x 16) is stored
+// as 16 rows of its 64 M values, B (16 x 64) as 16 rows of its 64 N values.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_mn(float (&d)[32], uint64_t da, uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VN_R32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
       : VN_ACC32(d)
       : "l"(da), "l"(db), "r"(scale_d));
 }

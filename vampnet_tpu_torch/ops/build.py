@@ -41,14 +41,11 @@ _SIGNATURES = {
     # q, k, v, bias, bias_is_bf16, mask, out, lse, b, t, h, d, q_scale, device,
     # stream
     "vampnet_attention_fwd_lse": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, bias, bias_is_bf16, mask, lse, do, delta, dk, dv, b, t, h, d,
-    # q_scale, device, stream
-    "vampnet_attention_bwd_dkdv": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, bias, bias_is_bf16, mask, lse, do, delta, dq_acc, dbias, b, t,
-    # h, d, q_scale, device, stream
-    "vampnet_attention_bwd_dq_dbias": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias, bias_is_bf16, mask, rows (lse and delta per query tile),
+    # do, dq_acc, dk, dv, dbias, part (scratch), b, t, h, d, q_scale, device,
+    # stream
+    "vampnet_attention_bwd": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _F, _I, _P),
     # x, x_is_bf16, w_q, w_scale, xq (scratch), a_scale (scratch), out,
     # out_is_bf16, m, n, k, device, stream
     "vampnet_w8a8_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

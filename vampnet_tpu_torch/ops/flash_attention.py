@@ -59,43 +59,47 @@ VJP `_attention_core`, `flash_attention.py:546-848`), at every t:
     inference kernel, also writing lse = m + log2(l) per query row in fp32,
     (b*h, t).
   * backward `attention_bwd`: delta = rowsum(do * out) in torch (XLA in the
-    JAX package, `:600-602`), then `attention_bwd_dkdv` (dk, dv; replaces
-    `_attn_kernel_bwd_dkdv`, `:336`) and `attention_bwd_dq_dbias` (dq and the
-    batch-summed dbias; replaces `_attn_kernel_bwd_dq_dbias`, `:381`). The
-    pair computes the function of the one-pass `_attn_kernel_bwd_wholeseq`
-    (`:428`), which the JAX package takes at b <= 8; the split there is a
-    choice about TPU VMEM, and the card takes the pair at every batch. With
-    a mask the `_masked` pair replaces `_attn_kernel_bwd` (`:279`), which
-    JAX runs over the per-(b*h) bias and whose per-(b*h) dbias its chain
-    rule then sums over the batch; here dbias stays head-shared and is summed
-    in registers, with the roundings of the unmasked pair.
+    JAX package, `:600-602`), then one launch of `attention_bwd_fused`
+    (`attention_bwd_fused_masked` with a mask): dq, dk, dv and the
+    batch-summed dbias in one pass of 5 score-sized products. It computes
+    the function of the one-pass `_attn_kernel_bwd_wholeseq` (`:428`), which
+    the JAX package takes at b <= 8, and so of the split pair
+    `_attn_kernel_bwd_dkdv` (`:336`) and `_attn_kernel_bwd_dq_dbias`
+    (`:381`) that it takes above (a choice about TPU VMEM; the card takes
+    the one pass at every batch). With a mask it replaces `_attn_kernel_bwd`
+    (`:279`), which JAX runs over the per-(b*h) bias and whose per-(b*h)
+    dbias its chain rule then sums over the batch; here dbias stays
+    head-shared and is summed over the batch in a fixed order, with the
+    roundings of the unmasked route.
   At the coarse training shape (b=8, t=862, h=20, d=64, fp32 bias) the
-  forward moves about 130 MB if the bias is read once (39 us) against
-  15.2 GFLOP (15 us): bound by bytes. The backward needs 5 score-sized
-  products (38 GFLOP, 39 us) and moves about 243 MB (73 us): bound by bytes
-  too. The forward's blocks read the bias in L2 once per head; the
-  dq/dbias kernel reads it once and writes dbias once, summing over the
-  batch in registers; the dk/dv kernel reads it once per batch row, through
-  shared memory. The pair does 7 products where the bound counts 5. A mask
-  adds 5.9 MB, read once per head.
+  forward's 2 products are 30.4 GFLOP (31 us at 989 TFLOP/s) and it moves
+  about 130 MB if the bias is read once (39 us): bound by bytes. The
+  backward's 5 products are 76.1 GFLOP (77 us) against 243.6 MB moved
+  (73 us): bound by operations, just. At b=1, t=2,048 the bias read and
+  dbias written (671 MB, 200 us) bound the backward by bytes. The forward's
+  blocks read the bias in L2 once per head; the backward reads it once per
+  batch row and writes dbias once. A mask adds 5.9 MB.
 
 What the design does about the TPU's layout: the TPU kernels hold a whole
 (t_p, t_p) score tile per program in up to 100 MB of VMEM; an SM has 227 KB.
-So every kernel here streams 64-key tiles with an online softmax or walks
-tiles of 64 x 64. The forward is warp specialised for Hopper: a block of
-three warpgroups owns 128 query rows of one (batch row, head); a producer
-warpgroup keeps a ring of key tiles in flight, K and V by TMA (4-D tensor
-maps, so rows past t arrive as zeros), the bias and mask tiles by TMA where
-a row of t elements is a multiple of 16 bytes, else row by row (a bulk copy
-per bias row, 16-byte cp.async for the mask). Two consumer warpgroups run
-both products on `wgmma` (S = b_2 + Q K^T from shared memory, the
-accumulator seeded with the prefolded bias; O += P V with P in registers)
-and the softmax on the accumulators. The blocks of one (head, query tile)
-are launched together, the batch row innermost, so L2 serves the bias strip
-to all but the first. The backward kernels use 4 warps of `mma.sync`
-m16n8k16 (bf16 in, fp32 accumulate): dk/dv walks query tiles for one key
-tile; dq/dbias walks the batch for one (query tile, key tile) and adds dq
-into an fp32 buffer with atomics. One fused backward pass is later work.
+So both kernels here stream 64-row tiles, warp specialised for Hopper: a
+producer warpgroup keeps a ring of tiles in flight (bf16 tiles by TMA from
+4-D tensor maps, so rows past t arrive as zeros; the bias and mask tiles by
+TMA where a row of t elements is a multiple of 16 bytes, else a bulk copy
+per bias row and 16-byte cp.async for the mask) and two consumer
+warpgroups run the products on `wgmma`, the score accumulator seeded with
+the prefolded bias. The forward: a block owns 128 query rows of one (batch
+row, head) and streams key tiles with an online softmax (O += P V with P in
+registers); the blocks of one (head, query tile) are launched together, the
+batch row innermost, so L2 serves the bias strip to all but the first. The
+backward: a block owns 64 keys of one head and walks the batch rows and, in
+each, the query tiles, which the two consumers take in turn; with the keys
+as the wgmma rows, P^T and dS^T stay in registers for dV += P^T dO and
+dK += dS^T Q_s, dS^T goes to shared memory for dQ's part dS K, which a TMA
+reduce-add adds into an fp32 buffer (no scalar atomics; dq's summation
+order across key tiles is not fixed), and each dbias entry is summed over
+the batch by one thread in a fixed order. dk, dv and dbias are bitwise
+reproducible.
 """
 from __future__ import annotations
 
@@ -245,14 +249,18 @@ def attention_bwd_dq_dbias_plain(q, k, v, bias, lse, do, delta, q_scale=None, ma
     return dq, dbias
 
 
-def attention_bwd_plain(q, k, v, bias, out, lse, do, mask=None):
-    """K8's function (K5's with a mask): (dq, dk, dv, dbias) of
-    softmax_2(q_s k^T + b_2) v at the raw q and bias, from the forward's out
-    and lse."""
-    delta = attention_delta(out, do)
+def attention_bwd_fused_plain(q, k, v, bias, lse, do, delta, mask=None):
+    """The backward kernel's function (K8's; K5's with a mask): (dq, dk, dv,
+    dbias), the two plain halves above on one delta."""
     dk, dv = attention_bwd_dkdv_plain(q, k, v, bias, lse, do, delta, mask=mask)
     dq, dbias = attention_bwd_dq_dbias_plain(q, k, v, bias, lse, do, delta, mask=mask)
     return dq, dk, dv, dbias
+
+
+def attention_bwd_plain(q, k, v, bias, out, lse, do, mask=None):
+    """(dq, dk, dv, dbias) of softmax_2(q_s k^T + b_2) v at the raw q and
+    bias, from the forward's out and lse."""
+    return attention_bwd_fused_plain(q, k, v, bias, lse, do, attention_delta(out, do), mask)
 
 
 # ------------------------------------------------------------- kernel wrappers
@@ -416,98 +424,75 @@ def _check_bwd(q, k, v, bias, lse, do, delta):
     _check_rows("delta", delta, b, t, h)
 
 
-def _launch_dkdv(q, k, v, bias, lse, do, delta, mask):
-    _check_bwd(q, k, v, bias, lse, do, delta)
-    b, t, h, d = q.shape
-    dk_, q_scale, (qp, kp, vp, dop) = _padded(q, k, v, do)
-    bias = _bias_or_zeros(bias, q)
-    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
-    rc = build.library().vampnet_attention_bwd_dkdv(
-        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), bias.data_ptr(),
-        int(bias.dtype == torch.bfloat16), _mask_ptr(mask), lse.data_ptr(), dop.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, dk_, q_scale,
-        q.device.index or 0, _stream(q),
-    )
-    build.check(rc, "attention backward dk/dv")
-    return dk[..., :d], dv[..., :d]
-
-
-def _launch_dq_dbias(q, k, v, bias, lse, do, delta, mask):
+def _launch_bwd(q, k, v, bias, lse, do, delta, mask):
+    """One launch of the backward kernel on CUDA tensors: (dq, dk, dv, dbias
+    or None)."""
     _check_bwd(q, k, v, bias, lse, do, delta)
     b, t, h, d = q.shape
     dk_, q_scale, (qp, kp, vp, dop) = _padded(q, k, v, do)
     bias_in = _bias_or_zeros(bias, q)
     dq_acc = torch.zeros(qp.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
     dbias = torch.empty((h, t, t), dtype=bias_in.dtype, device=q.device)
-    rc = build.library().vampnet_attention_bwd_dq_dbias(
+    # the kernel's 64-row query tiles: each tile's lse and delta rows side by
+    # side, (b*h, T/64, 2, 64) with T = t rounded up to 64, zeros past t, so
+    # that one 512-byte copy brings them; and, which one batch row does not
+    # need, the running batch sums of dbias, (h, T, T) fp32, followed by a
+    # cache of the prefolded bias, (h, T, T) in the bias dtype
+    t_pad = -(-t // 64) * 64
+    rows = torch.zeros((b * h, 2, t_pad), dtype=torch.float32, device=q.device)
+    rows[:, 0, :t] = lse
+    rows[:, 1, :t] = delta
+    rows = rows.view(b * h, 2, t_pad // 64, 64).transpose(1, 2).contiguous()
+    part = None
+    if b > 1:
+        part = torch.empty(h * t_pad * t_pad * (4 + bias_in.element_size()) // 4,
+                           dtype=torch.float32, device=q.device)
+    rc = build.library().vampnet_attention_bwd(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), bias_in.data_ptr(),
-        int(bias_in.dtype == torch.bfloat16), _mask_ptr(mask), lse.data_ptr(), dop.data_ptr(),
-        delta.data_ptr(), dq_acc.data_ptr(), dbias.data_ptr(), b, t, h, dk_, q_scale,
+        int(bias_in.dtype == torch.bfloat16), _mask_ptr(mask), rows.data_ptr(), dop.data_ptr(),
+        dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+        0 if part is None else part.data_ptr(), b, t, h, dk_, q_scale,
         q.device.index or 0, _stream(q),
     )
-    build.check(rc, "attention backward dq/dbias")
-    return dq_acc[..., :d].to(q.dtype), None if bias is None else dbias
+    build.check(rc, "attention backward")
+    return dq_acc[..., :d].to(q.dtype), dk[..., :d], dv[..., :d], None if bias is None else dbias
 
 
-def attention_bwd_dkdv(q, k, v, bias, lse, do, delta):
-    """The dk/dv kernel (K6): (dk, dv) in bf16. CPU tensors take
-    `attention_bwd_dkdv_plain`."""
+def attention_bwd_fused(q, k, v, bias, lse, do, delta):
+    """The backward kernel (K6/K7, K8's one pass): (dq, dk, dv in bf16,
+    dbias (h, t, t) in the bias's dtype, or None). CPU tensors take
+    `attention_bwd_fused_plain`."""
     if q.device.type == "cpu":
-        return attention_bwd_dkdv_plain(q, k, v, bias, lse, do, delta)
-    res = _launch_dkdv(q, k, v, bias, lse, do, delta, None)
-    attention_bwd_dkdv.launches += 1
+        return attention_bwd_fused_plain(q, k, v, bias, lse, do, delta)
+    res = _launch_bwd(q, k, v, bias, lse, do, delta, None)
+    attention_bwd_fused.launches += 1
     return res
 
 
-def attention_bwd_dkdv_masked(q, k, v, bias, lse, do, delta, mask):
-    """The dk/dv kernel with a mask (K5's dk and dv). Counts on its own
-    `launches`."""
+def attention_bwd_fused_masked(q, k, v, bias, lse, do, delta, mask):
+    """The backward kernel with a mask (K5; its dbias summed over the batch).
+    Counts on its own `launches`."""
     mask = attention_mask(mask, q)
     if q.device.type == "cpu":
-        return attention_bwd_dkdv_plain(q, k, v, bias, lse, do, delta, mask=mask)
-    res = _launch_dkdv(q, k, v, bias, lse, do, delta, mask)
-    attention_bwd_dkdv_masked.launches += 1
-    return res
-
-
-def attention_bwd_dq_dbias(q, k, v, bias, lse, do, delta):
-    """The dq/dbias kernel (K7): (dq bf16, dbias (h, t, t) in the bias's dtype,
-    or None). CPU tensors take `attention_bwd_dq_dbias_plain`."""
-    if q.device.type == "cpu":
-        return attention_bwd_dq_dbias_plain(q, k, v, bias, lse, do, delta)
-    res = _launch_dq_dbias(q, k, v, bias, lse, do, delta, None)
-    attention_bwd_dq_dbias.launches += 1
-    return res
-
-
-def attention_bwd_dq_dbias_masked(q, k, v, bias, lse, do, delta, mask):
-    """The dq/dbias kernel with a mask (K5's dq and its dbias summed over the
-    batch). Counts on its own `launches`."""
-    mask = attention_mask(mask, q)
-    if q.device.type == "cpu":
-        return attention_bwd_dq_dbias_plain(q, k, v, bias, lse, do, delta, mask=mask)
-    res = _launch_dq_dbias(q, k, v, bias, lse, do, delta, mask)
-    attention_bwd_dq_dbias_masked.launches += 1
+        return attention_bwd_fused_plain(q, k, v, bias, lse, do, delta, mask)
+    res = _launch_bwd(q, k, v, bias, lse, do, delta, mask)
+    attention_bwd_fused_masked.launches += 1
     return res
 
 
 def attention_bwd(q, k, v, bias, out, lse, do, mask=None):
-    """(dq, dk, dv, dbias): delta in torch, then the two backward kernels, the
-    masked pair where there is a mask (or, for CPU tensors, their plain
-    versions)."""
+    """(dq, dk, dv, dbias): delta in torch, then one launch of the backward
+    kernel, the masked route where there is a mask (or, for CPU tensors, the
+    plain versions)."""
     delta = attention_delta(out, do)
     if mask is None:
-        dk, dv = attention_bwd_dkdv(q, k, v, bias, lse, do, delta)
-        dq, dbias = attention_bwd_dq_dbias(q, k, v, bias, lse, do, delta)
-    else:
-        dk, dv = attention_bwd_dkdv_masked(q, k, v, bias, lse, do, delta, mask)
-        dq, dbias = attention_bwd_dq_dbias_masked(q, k, v, bias, lse, do, delta, mask)
-    return dq, dk, dv, dbias
+        return attention_bwd_fused(q, k, v, bias, lse, do, delta)
+    return attention_bwd_fused_masked(q, k, v, bias, lse, do, delta, mask)
 
 
 for _wrapper in (attention_fwd_masked, attention_fwd_long, attention_fwd_lse,
-                 attention_fwd_lse_masked, attention_bwd_dkdv, attention_bwd_dkdv_masked,
-                 attention_bwd_dq_dbias, attention_bwd_dq_dbias_masked):
+                 attention_fwd_lse_masked, attention_bwd_fused, attention_bwd_fused_masked):
     _wrapper.launches = 0
 
 
