@@ -41,11 +41,14 @@ Phases, each of which must pass (no failure is caught):
      (`ffn_impl="fused"`, the same weights) and check that every layer's
      feed-forward went through the fused kernel and no w_1/w_2 product ran;
  11. quantize the Interface to int8 (`Interface.quantize()`), serve
-     full-width requests and check the w8a8 launch counts; profile one;
+     full-width requests and check the w8a8 launch counts; profile one and
+     print its busy time beside the bf16 request's (phase 7);
  12. check a small int8 LM and a small fused-FFN LM on the card against the
      CPU's plain path.
 Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernel
-against their plain versions at the serving shapes, and the attention
+against their plain versions at the serving shapes, the w8a8 kernel also at
+ragged shapes (m 1, 37, 300; k 16, 80, 2,560; n 8, 40, 5,128; bf16 and fp32
+in and out), and the attention
 kernels at head dims 32 and 128 and with a bf16 bias. Then it prints one
 JSON line with every kernel's numbers, the card line again, and
 `{"ok": true, "device": ...}` as the last line. Without a CUDA device, or
@@ -444,7 +447,12 @@ def check_w8a8(m, k, n, gen, timed=True):
     import torch
     import torch.nn.functional as F
 
-    from vampnet_tpu_torch.ops.int8_matmul import quantize_rows, w8a8_matmul, w8a8_matmul_plain
+    from vampnet_tpu_torch.ops.int8_matmul import (
+        block_n,
+        quantize_rows,
+        w8a8_matmul,
+        w8a8_matmul_plain,
+    )
 
     dev = "cuda"
     x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -469,7 +477,7 @@ def check_w8a8(m, k, n, gen, timed=True):
     xq = quantize_rows(x)[0].contiguous()
     w_bf16 = torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
     return dict(
-        max_abs_err=err, max_abs_err_fp32_out=err32,
+        max_abs_err=err, max_abs_err_fp32_out=err32, block_n=block_n(m, n),
         ms=time_ms(lambda: w8a8_matmul(x, w_q, w_scale)),
         call_ms=call_ms(lambda: w8a8_matmul(x, w_q, w_scale)),
         plain_ms=time_ms(lambda: w8a8_matmul_plain(x, w_q, w_scale), reps=5),
@@ -478,6 +486,39 @@ def check_w8a8(m, k, n, gen, timed=True):
         bf16_matmul_ms=time_ms(lambda: F.linear(x, w_bf16)),
         bound_ms=1e3 * max(tb, tf), bound_by="bytes" if tb >= tf else "operations",
     )
+
+
+def check_w8a8_ragged(gen):
+    """The w8a8 kernel, untimed, at the ragged edges the serving shapes never
+    reach (a row block of 1 or 37 rows, k short of one 128-byte stage, n
+    short of or just past a tile), for bf16 and fp32 x and output: bit for
+    bit against its plain version."""
+    import torch
+
+    from vampnet_tpu_torch.ops.int8_matmul import w8a8_matmul, w8a8_matmul_plain
+
+    cases = 0
+    for m in (1, 37, 300):
+        for k in (16, 80, 2560):
+            for n in (8, 40, 5128):
+                w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                                    dtype=torch.int8)
+                w_scale = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+                x = torch.randn((m, k), generator=gen, device="cuda")
+                for x_dtype in (torch.bfloat16, torch.float32):
+                    for out_dtype in (torch.bfloat16, torch.float32):
+                        xd = x.to(x_dtype)
+                        out = w8a8_matmul(xd, w_q, w_scale, out_dtype=out_dtype)
+                        ref = w8a8_matmul_plain(xd, w_q, w_scale, out_dtype=out_dtype)
+                        torch.cuda.synchronize()
+                        if out.dtype != out_dtype or not torch.equal(out, ref):
+                            err = float((out.float() - ref.float()).abs().max())
+                            raise AssertionError(
+                                f"w8a8 kernel at m={m} k={k} n={n}, x {x_dtype}, out "
+                                f"{out_dtype}, differs from its plain version: max abs err {err}")
+                        cases += 1
+    return dict(max_abs_err=0.0, cases=cases, m=[1, 37, 300], k=[16, 80, 2560],
+                n=[8, 40, 5128], dtypes="x and out each bf16 and fp32")
 
 
 def check_ffn(m, d, gen, timed=True):
@@ -612,8 +653,10 @@ def check_against_cpu(iface, gen):
                 codec_wave_rel_err=wav_err)
 
 
-def profile(label, fn):
-    """Device time by kernel over one call of fn (torch.profiler)."""
+def profile(label, fn, totals=()):
+    """Device time by kernel over one call of fn (torch.profiler); also the
+    time and launches of the kernels whose names hold each fragment in
+    `totals`. Returns the busy time in ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -633,6 +676,11 @@ def profile(label, fn):
           f"{busy_ms:.1f} ms, {sum(r[2] for r in rows)} kernel launches")
     for us, key, count in rows[:15]:
         print(f"profile {label}:   {us / 1e3:9.2f} ms  x{count:<6d} {key[:90]}")
+    for fragment in totals:
+        hit = [r for r in rows if fragment in r[1]]
+        print(f"profile {label}: {sum(r[0] for r in hit) / 1e3:.2f} ms in "
+              f"{sum(r[2] for r in hit)} launches of {fragment}")
+    return busy_ms
 
 
 def train_audio(sr, hop, seconds, batch):
@@ -1050,7 +1098,7 @@ def main() -> int:
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {build.library_path().name}")
     for line in build.build_logs().splitlines():
-        if "error" in line:
+        if "error" in line or "Performance Loss" in line:
             print(f"build: {line.strip()}")
     for name, (regs, spill_st, spill_ld) in kernel_registers().items():
         print(f"build: {regs:3d} registers, spills {spill_st}/{spill_ld} B  {name}")
@@ -1103,6 +1151,7 @@ def main() -> int:
             checks[("w8a8_matmul", f"{lm_name}_{site}")] = (
                 lambda m=m, k=k, n=n: check_w8a8(m, k, n, gen))
         checks[("fused_geglu_ffn", lm_name)] = lambda m=m: check_ffn(m, d_model, gen)
+    checks[("w8a8_matmul", "ragged")] = lambda: check_w8a8_ragged(gen)
     # the long-context and masked routes: the app's 11 s chunk (948 tokens,
     # K1 where JAX takes K3 without a mask) and 12-20 s chunks (K9); the
     # masked forward (K3) at the coarse serving shape and, past 1024, K9's
@@ -1124,7 +1173,10 @@ def main() -> int:
         results[name][shape] = check()
         print(f"kernel {name}[{shape}]: " + json.dumps(results[name][shape]))
     attn, samp = results["attention_fwd"], results["sampler"]
-    w8a8_regs = registers_of("w8a8_gemm_kernel")
+    # the GEMM's 4 tile widths (BN), set up like the attention kernels
+    w8a8_regs = registers_of("w8a8_wgmma_kernel")
+    if len(w8a8_regs) != 4:
+        raise AssertionError(f"expected 4 w8a8 GEMM instances, found {sorted(w8a8_regs)}")
     w8a8_regs.update(registers_of("row_quant_kernel"))
     ffn_regs = registers_of("geglu_ffn_kernel")
     # the training kernels at the coarse training shape, and once at b=16,
@@ -1188,7 +1240,8 @@ def main() -> int:
     print("cpu check: " + json.dumps(check_train_against_cpu(gen)))
 
     # ---- 7. where a request's time goes ----
-    profile("request", lambda: iface.vamp_e2e(sig, seed=99, **kw))
+    # nvjet: cuBLAS's GEMMs (the LMs' projections and classifiers)
+    busy_bf16 = profile("request", lambda: iface.vamp_e2e(sig, seed=99, **kw), totals=("nvjet",))
 
     # ---- 8. long-context requests through the staged API ----
     # the Gradio app's sequence with a 20 s coarse chunk on a 20 s signal
@@ -1247,7 +1300,10 @@ def main() -> int:
     served_int8, int8_launches = serve("int8", lambda i: iface.vamp_e2e(sig, seed=SEED + i, **kw),
                                        OPTION_REQUESTS, counters, want_int8, n_samples)
     launches["w8a8_matmul"] = int8_launches["w8a8_matmul"]
-    profile("int8 request", lambda: iface.vamp_e2e(sig, seed=98, **kw))
+    busy_int8 = profile("int8 request", lambda: iface.vamp_e2e(sig, seed=98, **kw),
+                        totals=("row_quant_kernel", "w8a8_wgmma_kernel", "nvjet"))
+    print(f"profile: int8 request busy {busy_int8:.1f} ms, bf16 request busy {busy_bf16:.1f} ms "
+          f"(one request each, the same signal and settings)")
 
     # ---- 12. the two options on the card against the CPU ----
     print("cpu check: " + json.dumps(check_options_against_cpu(gen)))

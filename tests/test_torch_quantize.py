@@ -65,6 +65,63 @@ def test_w8a8_plain_equals_jax_xla_and_pallas_bit_for_bit(m, x_dtype, out_dtype)
     np.testing.assert_array_equal(got, np.asarray(want_pallas.astype(jnp.float32)))
 
 
+def _fma32(a, b, c):
+    """RN32(a * b + c) elementwise with one rounding, as the card's FMA: the
+    product is exact in float64 and the sum is rounded once there; where
+    that could land within a few float64 ulps of a float32 rounding
+    midpoint, the sum is redone in exact rationals."""
+    from fractions import Fraction
+
+    t = a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)
+    out = t.astype(np.float32)
+    other = np.nextafter(out, np.where(t >= out, np.float32(np.inf), np.float32(-np.inf)))
+    mid = (out.astype(np.float64) + other.astype(np.float64)) / 2
+    for i in np.flatnonzero(np.abs(t - mid) <= 4 * np.spacing(np.abs(t))):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        near = np.float32(float(exact))
+        cands = [near, np.nextafter(near, np.float32(np.inf)),
+                 np.nextafter(near, np.float32(-np.inf))]
+        out[i] = min(cands, key=lambda d: (abs(Fraction(float(d)) - exact),
+                                           int(np.float32(d).view(np.int32)) & 1))
+    return out
+
+
+def test_quant_code_arithmetic_equals_the_ieee_division():
+    """The card's row quantization (`quant_code` in csrc/int8_matmul.cu),
+    emulated with exact fp32 operations: RN(v * r) with r = RN(1/s), two
+    Newton corrections by FMA, a clamp to [-127, 127], and the rounding by
+    adding 1.5 * 2^23, whose low byte is the code. It must give the codes
+    of clip(rint(v / s)) with IEEE division: on rows of scales from 1e-13
+    to 2e4, on quotients next to half-integers, on exact half-integers
+    (ties to even) and at the row maximum."""
+    rng = np.random.default_rng(10)
+    f32 = np.float32
+    n = 100_000
+    got, want = [], []
+    for kind in range(4):
+        amax = np.exp(rng.uniform(-30, 10, n)).astype(f32)
+        s = (np.maximum(amax, f32(1e-8)) * f32(0.007874015718698502)).astype(f32)
+        if kind == 0:
+            v = (rng.uniform(-1, 1, n) * amax).astype(f32)
+        elif kind == 1:
+            h = rng.integers(-127, 127, n) + 0.5
+            v = (h * s.astype(np.float64) * (1 + rng.uniform(-3e-7, 3e-7, n))).astype(f32)
+        elif kind == 2:
+            v = ((rng.integers(-127, 127, n) + 0.5).astype(f32) * s).astype(f32)
+        else:
+            v = (np.where(rng.random(n) < 0.5, amax, -amax)
+                 * (1 - rng.integers(0, 4, n) * f32(2.0 ** -24))).astype(f32)
+        r = (f32(1) / s).astype(f32)
+        y = (v.astype(np.float64) * r.astype(np.float64)).astype(f32)
+        for _ in range(2):
+            y = _fma32(_fma32(-s, y, v), r, y)
+        y = np.minimum(np.maximum(y, f32(-127)), f32(127))
+        code = ((y + f32(12582912.0)).astype(f32).view(np.int32) & 0xFF).astype(np.uint8)
+        got.append(code.view(np.int8))
+        want.append(np.clip(np.rint(v / s), -127, 127).astype(np.int8))
+    np.testing.assert_array_equal(np.concatenate(got), np.concatenate(want))
+
+
 def test_w8a8_wrapper_on_cpu_takes_the_plain_version_and_launches_nothing():
     x, w_q, w_scale = _matmul_inputs(5, seed=1)
     before = w8a8_matmul.launches
@@ -208,6 +265,14 @@ def test_interface_quantize_matches_jax_quantize(quantized_interfaces):
 
 
 def test_quantized_vamp_e2e_tokens_match_jax(quantized_interfaces, monkeypatch):
+    # fp32 compute between the w8a8 products on both sides, in the same
+    # steps; the two packages part only in reduction order (the RMSNorm mean,
+    # the fp32 products) and in their math libraries' tanh, exp and rsqrt,
+    # 1e-7 to 5e-7 relative. Where an activation sits within that rounding of
+    # a quantization boundary the two pick neighbouring int8 codes, and a
+    # greedy token can then flip; such flips stay rare. Each stage is held on
+    # its own inputs: the c2f LM is conditioned on the coarse codes, so a
+    # coarse flip would be counted again in every fine token it conditions.
     jiface, tiface = quantized_interfaces
     seen = _capture_decoded_codes(monkeypatch)
     samples, sr = _signal()
@@ -217,12 +282,20 @@ def test_quantized_vamp_e2e_tokens_match_jax(quantized_interfaces, monkeypatch):
     jcodes, tcodes = seen["jax"], seen["torch"]
     assert tcodes.shape == jcodes.shape == (2, 4, 150)
     assert got.samples.shape == want.samples.shape
-    # fp32 compute between the w8a8 products on both sides. Where an
-    # activation sits within float rounding of a quantization boundary the
-    # two packages can pick neighbouring int8 codes, and a greedy token can
-    # then flip; such flips stay rare
-    differ = float((tcodes != jcodes).mean())
-    assert differ <= 0.02, f"{differ:.4f} of the tokens differ"
+    differ = float((tcodes[:, :2] != jcodes[:, :2]).mean())  # the coarse codebooks
+    assert differ <= 0.02, f"{differ:.4f} of the coarse tokens differ"
+
+    # c2f through the staged API, both sides given the JAX package's coarse
+    # codes (the conditioning codebooks are every chunk's prompt)
+    c2f_kw = dict(seed=0, mask_temperature=DETERMINISTIC["mask_temperature"],
+                  sample_cutoff=DETERMINISTIC["sample_cutoff"])
+    jfine = np.asarray(jiface.coarse_to_fine(jcodes[:, :2], **c2f_kw))
+    tfine = tiface.coarse_to_fine(torch.from_numpy(jcodes[:, :2].copy()), **c2f_kw).cpu().numpy()
+    assert tfine.shape == jfine.shape == (2, 4, 150)
+    np.testing.assert_array_equal(tfine[:, :2], jcodes[:, :2])
+    np.testing.assert_array_equal(jfine[:, :2], jcodes[:, :2])
+    differ = float((tfine[:, 2:] != jfine[:, 2:]).mean())
+    assert differ <= 0.02, f"{differ:.4f} of the fine tokens differ"
 
 
 def test_from_modules_takes_a_quantized_jax_tree():

@@ -49,6 +49,8 @@ _SIGNATURES = {
     # x, x_is_bf16, w_q, w_scale, xq (scratch), a_scale (scratch), out,
     # out_is_bf16, m, n, k, device, stream
     "vampnet_w8a8_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # m, n, device -> the w8a8 GEMM's tile width there (0: no device)
+    "vampnet_w8a8_block_n": (_I, _I, _I),
     # x, norm_weight, w1, w2, out, m, d, eps, device, stream
     "vampnet_geglu_ffn": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     # logits, keys, temp, top_p, flag, tokens, probs, b, flat, vocab, step,

@@ -27,12 +27,16 @@ shapes (m = b*t = 1,724 coarse, 2,072 c2f):
   * w_2, (2560, 1280): 11.3 G int-ops, 5.7 us: bound by operations.
 
 What the design does about it: the TPU kernel holds a row block's whole k in
-VMEM for the absmax (64 rows x 2560 bf16 = 320 KB, more than an SM's 227 KB),
-so the wrapper launches two kernels back to back: a row-quant pass writes xq
-and the row scales (2-5 MB), then an s8 tensor-core GEMM (mma.sync
-m16n8k32, 128 x 128 tiles, a two-stage cp.async ring) applies the dequant in
-its epilogue. The count `w8a8_matmul.launches` goes up by one per call (the
-pair).
+VMEM for the absmax (128 rows x 2560 bf16 = 640 KB, more than an SM's
+227 KB), so the wrapper launches two kernels back to back: a row-quant pass
+writes xq and the row scales (2-5 MB; the IEEE quotient by Newton steps on
+the FMA pipe), then a persistent warp-specialised GEMM (TMA-fed s8 `wgmma`
+from a 3-5 stage ring, two consumer warpgroups, 128 x BN tiles with BN
+chosen per (m, n) so the tiles fill whole waves of SMs; `block_n` reports
+it) applies the dequant in its epilogue and stores through shared memory.
+The GEMM starts by programmatic dependent launch, so its set-up and first
+weight tiles overlap the quant's tail. The count `w8a8_matmul.launches`
+goes up by one per call (the pair).
 """
 from __future__ import annotations
 
@@ -94,12 +98,14 @@ def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     m = x2.shape[0]
     if x2.data_ptr() % 16 or w_q.data_ptr() % 16:
         raise ValueError("x and w_q must be 16-byte aligned")
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    a_scale = torch.empty((m,), dtype=torch.float32, device=x.device)
+    # scratch: xq (m, k) int8, then a_scale (m,) fp32 at the next 16 bytes
+    xq_bytes = (m * k + 15) // 16 * 16
+    scratch = torch.empty((xq_bytes + 4 * m,), dtype=torch.uint8, device=x.device)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    xq = scratch.data_ptr()
     rc = build.library().vampnet_w8a8_matmul(
         x2.data_ptr(), int(x2.dtype == torch.bfloat16), w_q.data_ptr(), w_scale.data_ptr(),
-        xq.data_ptr(), a_scale.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        xq, xq + xq_bytes, out.data_ptr(), int(out_dtype == torch.bfloat16),
         m, n, k, x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(rc, "w8a8 matmul")
@@ -108,3 +114,10 @@ def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 
 
 w8a8_matmul.launches = 0
+
+
+def block_n(m: int, n: int, device=None) -> int:
+    """The GEMM's tile width (output columns per tile) at (m, n) on a CUDA
+    device."""
+    dev = torch.device("cuda" if device is None else device)
+    return build.library().vampnet_w8a8_block_n(m, n, dev.index or 0)
