@@ -39,16 +39,21 @@ Phases, each of which must pass (no failure is caught):
      masked stack and a small LM at t = 1,100 against the CPU;
  10. serve full-width requests with the fused-FFN option
      (`ffn_impl="fused"`, the same weights) and check that every layer's
-     feed-forward went through the fused kernel and no w_1/w_2 product ran;
+     feed-forward went through the fused kernels and no w_1/w_2 product ran;
+     profile one and print its busy time beside the bf16 request's;
  11. quantize the Interface to int8 (`Interface.quantize()`), serve
      full-width requests and check the w8a8 launch counts; profile one and
      print its busy time beside the bf16 request's (phase 7);
  12. check a small int8 LM and a small fused-FFN LM on the card against the
      CPU's plain path.
-Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernel
+Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernels
 against their plain versions at the serving shapes, the w8a8 kernel also at
 ragged shapes (m 1, 37, 300; k 16, 80, 2,560; n 8, 40, 5,128; bf16 and fp32
-in and out), and the attention
+in and out), the fused FFN also at m 1, 37, 400, 1,724 x d 128, 640, 1,280,
+2,560 and with a bf16 norm weight (two calls bit for bit), the sampler at the
+settings the serving path does not reach (top-p, scalar and per row; no
+typical filter; typical mass 0.9 with one token; temperature 0.5; rows of
+equal logits; sharply peaked rows), and the attention
 kernels at head dims 32 and 128 and with a bf16 bias. Then it prints one
 JSON line with every kernel's numbers, the card line again, and
 `{"ok": true, "device": ...}` as the last line. Without a CUDA device, or
@@ -70,10 +75,13 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 H100_INT8_OPS = 1979e12  # dense tensor-core int8
-# fp32 operations per logit in the sampler: 24 bisection steps x (compare,
-# masked add of p, masked add of the count) + log-softmax, entropy and
-# typicality (~10) + the temperature softmax and argmax (~6)
-SAMPLER_OPS_PER_LOGIT = 24 * 3 + 16
+# fp32 operations per logit that the sampler's function needs: log-softmax,
+# entropy and typicality (~10), 6 bisection steps over every logit x
+# (compare, masked add of p, masked add of the count), and the compaction of
+# the undecided band (~3). The other 18 steps and the softmax, noise and
+# argmax run over the band and the kept tokens (tens a position), less than
+# the logits' bytes take either way.
+SAMPLER_OPS_PER_LOGIT = 10 + 6 * 3 + 3
 SLEEP_CYCLES = 2_000_000  # about 1 ms of card time at 1.98 GHz
 
 
@@ -359,20 +367,18 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None, mask=Non
     return dict(zip(names, (fwd, bwd)))
 
 
-def check_sampler(b, flat, gen):
+def sampler_agreement(label, keys, logits, temp, top_p=None, **kw):
+    """The sampler kernel against its plain version on one input, greedy and
+    noisy: the mismatching tokens, the positions that differ, and the worst
+    probability error where the tokens agree."""
     import torch
 
     from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits, fused_sample_plain
 
-    dev = "cuda"
-    logits = torch.randn((b, flat, 1024), generator=gen, device=dev) * 3.0
-    keys = torch.randint(0, 2 ** 32, (b, 2), generator=gen, device=dev, dtype=torch.int64)
-    temp = torch.full((b,), 1.0, device=dev)
-    kw = dict(typical_filtering=True, typical_mass=0.15, typical_min_tokens=64)
     result = {}
     for mode, flag in (("greedy", 0.0), ("noisy", 1.0)):
-        tok, prob = fused_sample_from_logits(keys, 5, logits, temp, flag, **kw)
-        rtok, rprob = fused_sample_plain(keys, 5, logits, temp, flag, **kw)
+        tok, prob = fused_sample_from_logits(keys, 5, logits, temp, flag, top_p=top_p, **kw)
+        rtok, rprob = fused_sample_plain(keys, 5, logits, temp, flag, top_p, **kw)
         torch.cuda.synchronize()
         same = tok == rtok
         perr = (prob - rprob).abs()
@@ -384,16 +390,54 @@ def check_sampler(b, flat, gen):
         # the token) moves. Allow one such position in a thousand.
         ties = int((~agree).sum())
         if ties > tok.numel() // 1000:
-            raise AssertionError(f"sampler {mode}: {ties} of {tok.numel()} positions differ "
-                                 f"({int((~same).sum())} tokens)")
+            raise AssertionError(f"sampler {label} {mode}: {ties} of {tok.numel()} positions "
+                                 f"differ ({int((~same).sum())} tokens)")
         result[f"{mode}_token_mismatches"] = int((~same).sum())
         result[f"{mode}_tie_positions"] = ties
         result[f"{mode}_max_abs_err"] = float(perr[same].max())
+    return result
+
+
+def check_sampler(b, flat, gen, cases=False):
+    """The sampler kernel at (b, flat) on the serving settings (typical
+    filter, mass 0.15, at least 64 tokens) against its plain version, timed;
+    with `cases`, also untimed at the settings and inputs the serving path
+    does not reach: top-p (scalar and per row), no typical filter, a wide
+    typical mass, temperature 0.5, rows of equal logits, sharply peaked
+    rows."""
+    import torch
+
+    from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits, fused_sample_plain
+
+    dev = "cuda"
+    logits = torch.randn((b, flat, 1024), generator=gen, device=dev) * 3.0
+    keys = torch.randint(0, 2 ** 32, (b, 2), generator=gen, device=dev, dtype=torch.int64)
+    temp = torch.full((b,), 1.0, device=dev)
+    kw = dict(typical_filtering=True, typical_mass=0.15, typical_min_tokens=64)
+    result = sampler_agreement("serving", keys, logits, temp, **kw)
+    if cases:
+        equal = torch.randn((b, flat, 1), generator=gen, device=dev).expand(b, flat, 1024)
+        peaked = torch.randn((b, flat, 1024), generator=gen, device=dev) * 20.0
+        top_p_rows = torch.linspace(0.5, 0.95, b, device=dev)
+        for label, args, extra in (
+            ("top_p_0.9", (logits, temp), dict(kw, use_top_p=True, top_p=0.9)),
+            ("top_p_per_row", (logits, temp), dict(kw, use_top_p=True, top_p=top_p_rows)),
+            ("no_typical_filter", (logits, temp), dict(kw, typical_filtering=False)),
+            ("no_typical_filter_top_p_0.9", (logits, temp),
+             dict(kw, typical_filtering=False, use_top_p=True, top_p=0.9)),
+            ("typical_mass_0.9_min_1", (logits, temp),
+             dict(kw, typical_mass=0.9, typical_min_tokens=1)),
+            ("temperature_0.5", (logits, torch.full((b,), 0.5, device=dev)), kw),
+            ("equal_logits", (equal.contiguous(), temp), kw),
+            ("peaked_scale_20", (peaked, temp), kw),
+        ):
+            result[label] = sampler_agreement(label, keys, *args, **extra)
     io_bytes = logits.numel() * 4 + keys.numel() * 8 + b * flat * (8 + 4) + 3 * b * 4
     ops = logits.numel() * SAMPLER_OPS_PER_LOGIT
     result.update(
         max_abs_err=max(result["greedy_max_abs_err"], result["noisy_max_abs_err"]),
         ms=time_ms(lambda: fused_sample_from_logits(keys, 5, logits, temp, 1.0, **kw)),
+        call_ms=call_ms(lambda: fused_sample_from_logits(keys, 5, logits, temp, 1.0, **kw)),
         plain_ms=time_ms(lambda: fused_sample_plain(keys, 5, logits, temp, 1.0, **kw), reps=5),
         library_ms=None,
         bound_ms=1e3 * max(io_bytes / H100_BYTES_PER_S, ops / H100_FP32_FLOPS),
@@ -521,33 +565,40 @@ def check_w8a8_ragged(gen):
                 n=[8, 40, 5128], dtypes="x and out each bf16 and fp32")
 
 
-def check_ffn(m, d, gen, timed=True):
-    """The fused-FFN kernel at (m, d) against its plain version; timed against
-    the unfused chain of the serving path (RMSNorm, linear, GELU, linear,
-    add; no single PyTorch call computes the function)."""
+def check_ffn(m, d, gen, timed=True, nw_bf16=False):
+    """The fused-FFN kernels at (m, d) against their plain version, and two
+    calls against each other (bit for bit: no atomics); timed against the
+    unfused chain of the serving path (RMSNorm, linear, GELU, linear, add;
+    no single PyTorch call computes the function) and against cuBLAS's two
+    products alone."""
     import torch
     import torch.nn.functional as F
 
     from vampnet_tpu_torch.modules.activations import new_gelu
-    from vampnet_tpu_torch.ops.ffn_kernel import fused_geglu_ffn, fused_geglu_ffn_plain
+    from vampnet_tpu_torch.ops.ffn_kernel import block_n, fused_geglu_ffn, fused_geglu_ffn_plain
 
     dev = "cuda"
     x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
     nw = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    if nw_bf16:  # as the served LMs store it
+        nw = nw.to(torch.bfloat16)
     w1 = (torch.randn((4 * d, d), generator=gen, device=dev) / d ** 0.5).to(torch.bfloat16)
     w2 = (torch.randn((d, 2 * d), generator=gen, device=dev) / (2 * d) ** 0.5).to(torch.bfloat16)
     out = fused_geglu_ffn(x, nw, w1, w2)
+    again = fused_geglu_ffn(x, nw, w1, w2)
     ref = fused_geglu_ffn_plain(x, nw, w1, w2)
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
-        raise AssertionError("fused FFN kernel produced non-finite values")
+        raise AssertionError(f"fused FFN kernel produced non-finite values at m={m} d={d}")
+    if not torch.equal(out, again):
+        raise AssertionError(f"fused FFN kernel at m={m} d={d}: two calls differ")
     err = (out.float() - ref.float()).abs()
     # bf16 output; the kernel and the plain version round y and g to bf16 at
     # the same places, but sum in other orders, so a rounded y or g can move
     # by one bf16 ulp and the output with it
     tol = 2e-2 + 2e-2 * ref.float().abs()
     if bool((err > tol).any()):
-        raise AssertionError(f"fused FFN kernel disagrees at m={m}: max abs err "
+        raise AssertionError(f"fused FFN kernel disagrees at m={m} d={d}: max abs err "
                              f"{float(err.max())}")
     if not timed:
         return dict(max_abs_err=float(err.max()))
@@ -559,18 +610,39 @@ def check_ffn(m, d, gen, timed=True):
         p1, p2 = F.linear(y.to(x.dtype), w1).chunk(2, dim=-1)
         return x + F.linear(p1 * new_gelu(p2), w2)
 
+    h = torch.randn((m, 2 * d), generator=gen, device=dev).to(torch.bfloat16)
+    bn_up, bn_down = block_n(m, d)
+    row_tiles = (m + 127) // 128
     io_bytes = 2 * m * d * 2 + d * 4 + 4 * d * d * 2 + 2 * d * d * 2
     ops = 2 * m * d * 6 * d
     tb, tf = io_bytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
     return dict(
         max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
+        block_n_up=bn_up, tiles_up=row_tiles * -(-2 * d // bn_up),
+        block_n_down=bn_down, tiles_down=row_tiles * -(-d // bn_down),
         ms=time_ms(lambda: fused_geglu_ffn(x, nw, w1, w2)),
         call_ms=call_ms(lambda: fused_geglu_ffn(x, nw, w1, w2)),
         plain_ms=time_ms(lambda: fused_geglu_ffn_plain(x, nw, w1, w2), reps=5),
         library_ms=None, unfused_chain_ms=time_ms(unfused),
         unfused_note="the serving path's unfused chain: RMSNorm, F.linear, GELU, F.linear, add",
+        products_ms=time_ms(lambda: (F.linear(x, w1), F.linear(h, w2))),
+        products_note="cuBLAS's bf16 F.linear for w_1 (m, d) x (4d, d) and w_2 (m, 2d) x (d, 2d)",
         bound_ms=1e3 * max(tb, tf), bound_by="bytes" if tb >= tf else "operations",
     )
+
+
+def check_ffn_edges(gen):
+    """The fused-FFN kernels, untimed, at ragged row counts and at other
+    widths than the served d (2,560: past the served width and past the row
+    pass's 2,048-wide batch), and with a bf16 norm weight: against the plain
+    version, and bit for bit between two calls."""
+    cases = {}
+    for m in (1, 37, 400, 1724):
+        for d in (128, 640, 1280, 2560):
+            cases[f"m{m}_d{d}"] = check_ffn(m, d, gen, timed=False)["max_abs_err"]
+    cases["m1724_d1280_bf16_norm_weight"] = check_ffn(1724, 1280, gen, timed=False,
+                                                      nw_bf16=True)["max_abs_err"]
+    return dict(max_abs_err=max(cases.values()), cases=cases)
 
 
 def random_state(module, gen, fan_in=False):
@@ -1138,7 +1210,7 @@ def main() -> int:
         ("attention_fwd", "d128"): lambda: check_attention(
             2, t_coarse, d_model // 128, 128, torch.bfloat16, gen, timed=False),
         ("sampler", "coarse"): lambda: check_sampler(
-            2, t_coarse * coarse_cfg.n_predict_codebooks, gen),
+            2, t_coarse * coarse_cfg.n_predict_codebooks, gen, cases=True),
         ("sampler", "c2f"): lambda: check_sampler(
             n_c2f_rows, t_c2f * c2f_cfg.n_predict_codebooks, gen),
     }
@@ -1152,6 +1224,7 @@ def main() -> int:
                 lambda m=m, k=k, n=n: check_w8a8(m, k, n, gen))
         checks[("fused_geglu_ffn", lm_name)] = lambda m=m: check_ffn(m, d_model, gen)
     checks[("w8a8_matmul", "ragged")] = lambda: check_w8a8_ragged(gen)
+    checks[("fused_geglu_ffn", "edges")] = lambda: check_ffn_edges(gen)
     # the long-context and masked routes: the app's 11 s chunk (948 tokens,
     # K1 where JAX takes K3 without a mask) and 12-20 s chunks (K9); the
     # masked forward (K3) at the coarse serving shape and, past 1024, K9's
@@ -1178,7 +1251,14 @@ def main() -> int:
     if len(w8a8_regs) != 4:
         raise AssertionError(f"expected 4 w8a8 GEMM instances, found {sorted(w8a8_regs)}")
     w8a8_regs.update(registers_of("row_quant_kernel"))
-    ffn_regs = registers_of("geglu_ffn_kernel")
+    # the fused FFN's two GEMMs at their 6 tile widths (up-projection BN 112,
+    # 128, 160; down-projection 128, 144, 192), set up like the w8a8 GEMM,
+    # and its RMSNorm row pass (bf16 and fp32 norm weights)
+    ffn_regs = registers_of("ffn_gemm_kernel")
+    if len(ffn_regs) != 6:
+        raise AssertionError(f"expected 6 fused FFN GEMM instances, found {sorted(ffn_regs)}")
+    ffn_regs.update(registers_of("rms_norm_kernel"))
+    sampler_regs = registers_of("sampler_kernel")
     # the training kernels at the coarse training shape, and once at b=16,
     # where the JAX package takes its split backward pair (K6/K7)
     train_k = check_attention_train(TRAIN_BATCH, t_coarse, coarse_cfg.n_heads, d_head, gen)
@@ -1241,7 +1321,8 @@ def main() -> int:
 
     # ---- 7. where a request's time goes ----
     # nvjet: cuBLAS's GEMMs (the LMs' projections and classifiers)
-    busy_bf16 = profile("request", lambda: iface.vamp_e2e(sig, seed=99, **kw), totals=("nvjet",))
+    busy_bf16 = profile("request", lambda: iface.vamp_e2e(sig, seed=99, **kw),
+                        totals=("nvjet", "sampler_kernel"))
 
     # ---- 8. long-context requests through the staged API ----
     # the Gradio app's sequence with a 20 s coarse chunk on a 20 s signal
@@ -1279,11 +1360,15 @@ def main() -> int:
     served_fused, fused_launches = serve(
         "fused-ffn", lambda i: fused_iface.vamp_e2e(sig, seed=SEED + i, **kw), OPTION_REQUESTS,
         counters, want_fused, n_samples)
+    launches["fused_geglu_ffn"] = fused_launches["fused_geglu_ffn"]
+    busy_fused = profile("fused-ffn request", lambda: fused_iface.vamp_e2e(sig, seed=96, **kw),
+                         totals=("rms_norm_kernel", "ffn_gemm_kernel", "nvjet"))
+    print(f"profile: fused-ffn request busy {busy_fused:.1f} ms, bf16 request busy "
+          f"{busy_bf16:.1f} ms (one request each, the same signal and settings)")
     for h in hooks:
         h.remove()
     if ffn_calls[0] or len(hooks) != 2 * (coarse_cfg.n_layers + c2f_cfg.n_layers):
         raise AssertionError(f"the fused path ran {ffn_calls[0]} w_1/w_2 products")
-    launches["fused_geglu_ffn"] = fused_launches["fused_geglu_ffn"]
     del fused_iface
 
     # ---- 11. the int8 option: Interface.quantize() on the served weights ----
@@ -1327,8 +1412,8 @@ def main() -> int:
                    "vampnet_tpu/ops/flash_attention.py:47", results["attention_fwd_long"],
                    main=f"t{t_long}"),
              launches_path="staged requests with a 20 s coarse chunk"),
-        entry("sampler", "vampnet_tpu_torch/csrc/sampler.cu",
-              "vampnet_tpu/ops/sampler_kernel.py:80", samp),
+        dict(entry("sampler", "vampnet_tpu_torch/csrc/sampler.cu",
+                   "vampnet_tpu/ops/sampler_kernel.py:80", samp), registers=sampler_regs),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, replaces, also in (

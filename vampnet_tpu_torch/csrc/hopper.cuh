@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks in raw PTX, for the warp-specialised
-// attention kernels (attention_fwd.cu, attention_bwd.cu): mbarriers, TMA tile
-// loads and reduce-adds, bulk copies of unaligned rows, cp.async copies that
-// arrive on an mbarrier, wgmma with its shared-memory matrix descriptors,
-// register hand-over between warpgroups (setmaxnreg), and the host-side
-// encoding of a TMA tensor map.
+// kernels (attention_fwd.cu, attention_bwd.cu, int8_matmul.cu, ffn.cu):
+// mbarriers, TMA tile loads and reduce-adds, bulk copies of unaligned rows,
+// cp.async copies that arrive on an mbarrier, programmatic dependent launch,
+// wgmma with its shared-memory matrix descriptors, register hand-over between
+// warpgroups (setmaxnreg), and the host-side encoding of TMA tensor maps.
 #pragma once
 
 #include <cuda.h>
@@ -150,6 +150,18 @@ __device__ __forceinline__ void fence_proxy_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
+// Programmatic dependent launch: a kernel launched with the
+// programmatic-serialization attribute may start before the kernel ahead of
+// it on the stream ends; griddep_wait blocks until that kernel has finished
+// and its writes are visible, and griddep_launch_dependents lets the next
+// kernel start early.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // L2 eviction policies for the cache hints below: evict_last for data a
 // kernel comes back to, evict_first for data read once.
 __device__ __forceinline__ uint64_t policy_evict_last() {
@@ -161,6 +173,13 @@ __device__ __forceinline__ uint64_t policy_evict_first() {
   uint64_t p;
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
   return p;
+}
+
+// 16 bytes register -> global (16-byte aligned), with an L2 cache policy.
+__device__ __forceinline__ void st_global_16_hint(void* dst, uint4 v, uint64_t policy) {
+  asm volatile("st.global.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, %4}, %5;\n" ::"l"(dst),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(policy)
+               : "memory");
 }
 
 // As bulk_load, with an L2 cache policy.
@@ -351,6 +370,100 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (64 x N, fp32) = (scale_d ? d : 0) + A B, A (64 x 16) and B (16 x N)
+// bf16 in shared memory, both K-major: the widths of the fused FFN's GEMMs
+// (ffn.cu). d[4 j + e] is row 16 warp + lane / 4 (+ 8 for e >= 2), column
+// 8 j + 2 (lane % 4) + (e & 1).
+template <int N>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<112> {
+  static __device__ __forceinline__ void mma(float (&d)[56], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
+        "%47, %48, %49, %50, %51, %52, %53, %54, %55}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+        : VN_ACC32(d), VN_ACC8(d, 32), VN_ACC8(d, 40), VN_ACC8(d, 48)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
+        "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+        "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : VN_ACC64(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<144> {
+  static __device__ __forceinline__ void mma(float (&d)[72], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
+        "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+        "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71}, %72, %73, p, 1, 1, 0, 0;\n}\n"
+        : VN_ACC64(d), VN_ACC8(d, 64)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<160> {
+  static __device__ __forceinline__ void mma(float (&d)[80], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
+        "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+        "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76,"
+        "%77, %78, %79}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+        : VN_ACC64(d), VN_ACC8(d, 64), VN_ACC8(d, 72)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<192> {
+  static __device__ __forceinline__ void mma(float (&d)[96], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
+        "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+        "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76,"
+        "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91,"
+        "%92, %93, %94, %95}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+        : VN_ACC64(d), VN_ACC8(d, 64), VN_ACC8(d, 72), VN_ACC8(d, 80), VN_ACC8(d, 88)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 #undef VN_ACC8
 #undef VN_ACC32
 #undef VN_ACC64
@@ -389,6 +502,41 @@ inline bool encode_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank, co
   return encode(map, dtype, rank, const_cast<void*>(ptr), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The TMA map over a row-major (rows, cols) matrix of `elem_bytes`-byte
+// elements: boxes of box_rows rows x 128 bytes, 128-byte swizzle; rows past
+// `rows` and columns past `cols` read as zeros. Encoding one costs more host
+// time than the rest of a GEMM call, so maps are kept per host thread by
+// (address, type, rows, cols, box): a map is a function of those alone, so a
+// kept one is the one encoding would give, whatever tensor lives at the
+// address now.
+inline bool swizzled_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, int elem_bytes,
+                            const void* ptr, int rows, int cols, int box_rows) {
+  struct Entry {
+    const void* ptr;
+    int dtype, rows, cols, box_rows;
+    CUtensorMap map;
+  };
+  thread_local Entry kept[256] = {};
+  const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
+  Entry& e = kept[((a >> 8) ^ (a >> 16) ^ (uintptr_t)rows * 31u ^ (uintptr_t)box_rows ^
+                   (uintptr_t)cols * 7u) &
+                  255];
+  if (e.ptr == ptr && e.dtype == (int)dtype && e.rows == rows && e.cols == cols &&
+      e.box_rows == box_rows) {
+    *map = e.map;
+    return true;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
+  if (!encode_map(map, dtype, 2, ptr, dims, stride, box, CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return false;
+  }
+  e.ptr = ptr, e.dtype = (int)dtype, e.rows = rows, e.cols = cols, e.box_rows = box_rows;
+  e.map = *map;
+  return true;
 }
 
 // A tensor map over a contiguous (b, t, h, d) bf16 tensor, d a multiple of

@@ -69,13 +69,6 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 static_assert(WG * PRODUCER_REGS + 2 * WG * CONSUMER_REGS <= 65536, "register plan");
 
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-__device__ __forceinline__ void griddep_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
 // Eight consecutive elements of a row, as floats (k is a multiple of 16, so
 // every 8-element chunk is 16-byte aligned).
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float f[8]) {
@@ -467,32 +460,9 @@ int choose_block_n(int m, int n, int sms) {
 }
 
 // The TMA map over a (rows, k) int8 matrix: boxes of box_rows rows x 128
-// bytes, 128-byte swizzle. Encoding one costs more host time than the rest
-// of a call, so maps are kept per host thread by (address, rows, k, box): a
-// map is a function of those alone, so a kept one is the one encoding would
-// give, whatever tensor lives at the address now.
+// bytes, 128-byte swizzle, kept per host thread (swizzled_map_2d).
 bool s8_map(CUtensorMap* map, const void* ptr, int rows, int k, int box_rows) {
-  struct Entry {
-    const void* ptr;
-    int rows, k, box_rows;
-    CUtensorMap map;
-  };
-  thread_local Entry kept[256] = {};
-  const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
-  Entry& e = kept[((a >> 8) ^ (a >> 16) ^ (uintptr_t)rows * 31u ^ (uintptr_t)box_rows) & 255];
-  if (e.ptr == ptr && e.rows == rows && e.k == k && e.box_rows == box_rows) {
-    *map = e.map;
-    return true;
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
-  const cuuint64_t stride[1] = {(cuuint64_t)k};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  if (!encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, ptr, dims, stride, box,
-                  CU_TENSOR_MAP_SWIZZLE_128B)) {
-    return false;
-  }
-  e.ptr = ptr, e.rows = rows, e.k = k, e.box_rows = box_rows, e.map = *map;
-  return true;
+  return swizzled_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ptr, rows, k, box_rows);
 }
 
 template <int BN>

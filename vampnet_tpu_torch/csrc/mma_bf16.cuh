@@ -1,6 +1,6 @@
 // Shared helpers of the bf16 tensor-core kernels (attention_fwd.cu,
-// attention_bwd.cu, ffn.cu): fragment packing, the m16n8k16 mma.sync (ffn.cu),
-// the bias prefold's factor, the mask's fill, and the launch.
+// attention_bwd.cu, ffn.cu): fragment packing, the bias prefold's factor, the
+// mask's fill, and the launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,15 +20,6 @@ constexpr float FULLY_BLOCKED_LSE = -5e8f;
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b, m16n8k16, A row-major bf16, B column-major bf16, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Launches `kernel` with `smem` bytes of dynamic shared memory, raising the

@@ -51,8 +51,12 @@ _SIGNATURES = {
     "vampnet_w8a8_matmul": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # m, n, device -> the w8a8 GEMM's tile width there (0: no device)
     "vampnet_w8a8_block_n": (_I, _I, _I),
-    # x, norm_weight, w1, w2, out, m, d, eps, device, stream
-    "vampnet_geglu_ffn": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # x, norm_weight, nw_is_bf16, w1, w2, y (scratch), g (scratch), out, m,
+    # d, eps, device, stream
+    "vampnet_geglu_ffn": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # m, d, up, device -> the tile width of the up- (up = 1) or
+    # down-projection GEMM there (0: no device)
+    "vampnet_geglu_ffn_block_n": (_I, _I, _I, _I),
     # logits, keys, temp, top_p, flag, tokens, probs, b, flat, vocab, step,
     # typical, typical_mass, typical_min_tokens, use_top_p, device, stream
     "vampnet_sampler": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -22,12 +22,17 @@ at c2f (m = 2,072). The bytes (x, out and the 19.7 MB of weights) take 7 us.
 
 What the design does about the TPU's layout: the TPU kernel carries a
 (rows, d) fp32 accumulator across the hidden sweep in VMEM (320 KB for 64
-rows at d = 1280). Here a block of 8 warps owns 16 rows and keeps the
-accumulator in registers, split by output column across the warps; the
-normalised rows stay in shared memory; w1 and w2 stream from L2 straight
-into the tensor-core operands. Each block reads every weight once, so the
-whole grid reads them m/16 times from L2: the kernel is right and simple,
-not fast (see PERF.md).
+rows at d = 1280), more than an SM holds. Here the call is three kernels on
+one stream: a row pass writes y = RMSNorm(x) (m, d) bf16 to scratch; a
+persistent warp-specialised GEMM (TMA-fed bf16 `wgmma`, 128 x BN tiles)
+takes y against the value and gate rows of w1 together, forms g = p1 *
+gelu(p2) in its epilogue and writes g (m, 2d) bf16 to scratch, kept in L2;
+a second GEMM of the same design takes g against w2 and adds the residual
+in its epilogue. Each weight tile is read once per 128 rows, and the fp32
+pre-activation never leaves registers. Both GEMMs start by programmatic
+dependent launch, and BN is chosen per (m, n) so that the tiles fill whole
+waves of SMs (`block_n` reports it). The count `fused_geglu_ffn.launches`
+goes up by one per call (the three kernels).
 """
 from __future__ import annotations
 
@@ -60,14 +65,11 @@ def fused_geglu_ffn_plain(x: torch.Tensor, norm_weight: torch.Tensor, w1: torch.
     return (xf + g.float() @ w2.to(dt).float().T).to(dt)
 
 
-def fused_geglu_ffn(x: torch.Tensor, norm_weight: torch.Tensor, w1: torch.Tensor,
-                    w2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x + FeedForward(RMSNorm(x)) in one kernel: x (..., d) bf16, d a
-    multiple of 128 up to 1280. Forward-only. CPU tensors take
-    `fused_geglu_ffn_plain`; CUDA tensors launch the kernel and count it."""
-    if x.device.type == "cpu":
-        return fused_geglu_ffn_plain(x, norm_weight, w1, w2, eps)
-    build.refuse_grad("fused FFN", x, norm_weight, w1, w2)
+def check_args(x: torch.Tensor, norm_weight: torch.Tensor, w1: torch.Tensor,
+               w2: torch.Tensor) -> None:
+    """Raise on what the kernel does not take: x (..., d) bf16 with d a
+    multiple of 128, norm_weight (d,), w1 (4d, d), w2 (d, 2d), all on x's
+    device."""
     d = x.shape[-1]
     if x.dtype != torch.bfloat16:
         raise ValueError(f"the fused FFN kernel takes bf16 x, got {x.dtype}")
@@ -77,16 +79,37 @@ def fused_geglu_ffn(x: torch.Tensor, norm_weight: torch.Tensor, w1: torch.Tensor
             or tuple(w2.shape) != (d, 2 * d):
         raise ValueError(f"want norm_weight ({d},), w1 ({4 * d}, {d}), w2 ({d}, {2 * d}); got "
                          f"{tuple(norm_weight.shape)}, {tuple(w1.shape)}, {tuple(w2.shape)}")
-    if d % 128 or d > 1280:
-        raise ValueError(f"the fused FFN kernel takes d a multiple of 128 up to 1280, got {d}")
+    if d == 0 or d % 128:
+        raise ValueError(f"the fused FFN kernel takes d a multiple of 128, got {d}")
+
+
+def fused_geglu_ffn(x: torch.Tensor, norm_weight: torch.Tensor, w1: torch.Tensor,
+                    w2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x + FeedForward(RMSNorm(x)) in one call: x (..., d) bf16, d a multiple
+    of 128. Forward-only. CPU tensors take `fused_geglu_ffn_plain`; CUDA
+    tensors launch the kernels and count the call."""
+    if x.device.type == "cpu":
+        return fused_geglu_ffn_plain(x, norm_weight, w1, w2, eps)
+    build.refuse_grad("fused FFN", x, norm_weight, w1, w2)
+    check_args(x, norm_weight, w1, w2)
+    d = x.shape[-1]
     x2 = x.reshape(-1, d).contiguous()
-    nw = norm_weight.float().contiguous()
+    m = x2.shape[0]
+    # bf16 norm weights widen to fp32 exactly inside the kernel
+    nw = norm_weight.contiguous() if norm_weight.dtype == torch.bfloat16 \
+        else norm_weight.float().contiguous()
     w1c = w1.to(torch.bfloat16).contiguous()
     w2c = w2.to(torch.bfloat16).contiguous()
+    if any(t.data_ptr() % 16 for t in (x2, nw, w1c, w2c)):
+        raise ValueError("x, norm_weight, w1 and w2 must be 16-byte aligned")
+    # scratch: the normalised rows y and the gated hidden activations g
+    y = torch.empty((m, d), dtype=torch.bfloat16, device=x.device)
+    g = torch.empty((m, 2 * d), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x2)
     rc = build.library().vampnet_geglu_ffn(
-        x2.data_ptr(), nw.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), out.data_ptr(),
-        x2.shape[0], d, float(eps), x.device.index or 0,
+        x2.data_ptr(), nw.data_ptr(), int(nw.dtype == torch.bfloat16), w1c.data_ptr(),
+        w2c.data_ptr(), y.data_ptr(),
+        g.data_ptr(), out.data_ptr(), m, d, float(eps), x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(rc, "fused FFN")
@@ -95,3 +118,11 @@ def fused_geglu_ffn(x: torch.Tensor, norm_weight: torch.Tensor, w1: torch.Tensor
 
 
 fused_geglu_ffn.launches = 0
+
+
+def block_n(m: int, d: int, device=None) -> tuple:
+    """The tile widths (up-projection, down-projection) of the two GEMMs at
+    (m, d) on a CUDA device."""
+    dev = torch.device("cuda" if device is None else device)
+    lib = build.library()
+    return tuple(lib.vampnet_geglu_ffn_block_n(m, d, up, dev.index or 0) for up in (1, 0))

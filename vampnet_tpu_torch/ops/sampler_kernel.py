@@ -22,14 +22,21 @@ the same tokens alone or batched with others).
 
 What bounds it on an H100: one read of the logits, (b, flat, 1024) fp32:
 28 MB at coarse shapes (2 x 3444 positions), 8.4 us at 3.35 TB/s; 85 MB at
-c2f shapes (8 x 2590), 25 us. The arithmetic is about 90 fp32 operations per
-logit (the 24 bisection steps dominate), which at 67 TFLOP/s is about the
-same time as the read.
+c2f shapes (8 x 2590), 25 us. The plain algorithm's arithmetic is about 90
+fp32 operations per logit (the 24 bisection steps dominate), about the same
+time as the read at 67 TFLOP/s.
 
 What the design does about it: one warp per position, the 1024 logits in
 registers (32 per lane, loaded as float4), every reduction a butterfly of
-warp shuffles with no shared memory and no block barrier; logits are read
-once and only the token and its probability are written.
+warp shuffles with no block barrier; logits are read once and only the
+token and its probability are written. The typicality distances and
+probabilities go to 8 KB of shared memory per warp, so that 24 warps share
+an SM (80 registers a thread). After 6 bisection steps over all entries,
+the entries already decided are carried as a count and a mass and the
+remaining 18 steps run over the undecided band alone (the same comparisons,
+so the same kept set). The kept tokens are then listed in ascending vocab
+order, and top-p, the softmax, the noise and the argmax run over them alone:
+a dropped token adds exp(-inf) = 0 to every sum and wins no argmax.
 """
 from __future__ import annotations
 
@@ -108,7 +115,13 @@ def fused_sample_plain(row_keys, step, logits, temperature, do_sample, top_p=Non
 
 
 def _row_param(x, b: int, device) -> torch.Tensor:
-    x = torch.as_tensor(1.0 if x is None else x, dtype=torch.float32, device=device)
+    """A scalar, None (1.0) or tensor parameter as a (b,) fp32 tensor on
+    `device`. A Python number is filled on the device: a copy from the host
+    would wait for the stream to drain."""
+    if x is None or isinstance(x, (int, float)):
+        return torch.full((b,), 1.0 if x is None else float(x), dtype=torch.float32,
+                          device=device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
     return x.expand(b).contiguous() if x.dim() == 0 else x.contiguous()
 
 
@@ -141,7 +154,8 @@ def fused_sample_from_logits(row_keys: torch.Tensor, step: int, logits: torch.Te
     keys = row_keys.contiguous()
     temp = _row_param(temperature, b, logits.device)
     flag = _row_param(do_sample, b, logits.device)
-    topp = _row_param(top_p, b, logits.device)
+    # the kernel reads top_p only under use_top_p
+    topp = _row_param(top_p, b, logits.device) if use_top_p else temp
     for name, x in (("temperature", temp), ("do_sample", flag), ("top_p", topp)):
         if tuple(x.shape) != (b,):
             raise ValueError(f"{name} must be a scalar or ({b},)")
