@@ -45,7 +45,18 @@ Phases, each of which must pass (no failure is caught):
      full-width requests and check the w8a8 launch counts; profile one and
      print its busy time beside the bf16 request's (phase 7);
  12. check a small int8 LM and a small fused-FFN LM on the card against the
-     CPU's plain path.
+     CPU's plain path;
+ 13. serve the published architecture from checkpoint files that the run
+     writes in a temporary directory (`serve_from_files`): full-width coarse
+     and c2f LMs at LoRA rank 8 written as upstream's `.pth` files, the codec
+     as `.vtpu`, loaded with `Interface.from_checkpoints` and served (the
+     launch counts, every adapter site run, tokens that move when the
+     adapters are zeroed); the converted LMs written as `.vtpu` and served
+     to the same tokens; a models directory with a bf16 LoRA fine-tune
+     (`available_models`, `Interface.default()`, `load_finetuned`, `reload`
+     with the loaded paths); int8 requests after `quantize()`; a small LoRA
+     LM against the CPU; both LoRA requests profiled; file sizes and load
+     and write seconds printed.
 Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernels
 against their plain versions at the serving shapes, the w8a8 kernel also at
 ragged shapes (m 1, 37, 300; k 16, 80, 2,560; n 8, 40, 5,128; bf16 and fp32
@@ -728,7 +739,7 @@ def check_against_cpu(iface, gen):
 def profile(label, fn, totals=()):
     """Device time by kernel over one call of fn (torch.profiler); also the
     time and launches of the kernels whose names hold each fragment in
-    `totals`. Returns the busy time in ms."""
+    `totals`. Returns (the busy time in ms, the kernel launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -742,17 +753,18 @@ def profile(label, fn, totals=()):
     rows = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
+    n_launches = sum(r[2] for r in rows)
     if not rows:
         raise AssertionError(f"profile {label}: the profiler saw no device time")
     print(f"profile {label}: wall {wall * 1e3:.1f} ms (profiler on), kernels busy "
-          f"{busy_ms:.1f} ms, {sum(r[2] for r in rows)} kernel launches")
+          f"{busy_ms:.1f} ms, {n_launches} kernel launches")
     for us, key, count in rows[:15]:
         print(f"profile {label}:   {us / 1e3:9.2f} ms  x{count:<6d} {key[:90]}")
     for fragment in totals:
         hit = [r for r in rows if fragment in r[1]]
         print(f"profile {label}: {sum(r[0] for r in hit) / 1e3:.2f} ms in "
               f"{sum(r[2] for r in hit)} launches of {fragment}")
-    return busy_ms
+    return busy_ms, n_launches
 
 
 def train_audio(sr, hop, seconds, batch):
@@ -1137,6 +1149,326 @@ def fused_interface(iface):
         lms.append(lm.requires_grad_(False).eval())
     return Interface(iface.codec, *lms)
 
+def write_reference_lm(path, state, cfg):
+    """Write an LM as upstream VampNet saves one, from the port's state dict
+    (CPU tensors): the audiotools wrapper `{"state_dict", "metadata":
+    {"kwargs"}}`, loralib's adapter names (`lora_A` (r, in), `lora_B`
+    (out, r)), a k=1 conv `embedding.out_proj`, and a weight-normed
+    classifier (v the weight, g its row norms) with vocab-major channels."""
+    import torch
+
+    v, n_pred = cfg.vocab_size, cfg.n_predict_codebooks
+    k = torch.arange(v * n_pred)
+    perm = (k % v) * n_pred + k // v  # the converter's codebook-major order
+    w = torch.empty_like(state["classifier.weight"])
+    w[perm] = state["classifier.weight"]
+    b = torch.empty_like(state["classifier.bias"])
+    b[perm] = state["classifier.bias"]
+    sd = {"embedding.special.MASK": state["embedding.special_MASK"],
+          "embedding.out_proj.weight": state["embedding.out_proj.weight"][:, :, None],
+          "embedding.out_proj.bias": state["embedding.out_proj.bias"],
+          "classifier.layers.0.weight_v": w[:, :, None],
+          "classifier.layers.0.weight_g": torch.linalg.vector_norm(w, dim=1)[:, None, None],
+          "classifier.layers.0.bias": b}
+    for key, x in state.items():
+        if not key.startswith("transformer."):
+            continue
+        name = key.replace(".layers_", ".layers.")
+        if name.endswith((".lora_a", ".lora_b")):
+            name, x = name[:-1] + name[-1].upper(), x.T
+        elif name.endswith("relative_attention_bias"):
+            name += ".weight"
+        sd[name] = x.contiguous()
+    kwargs = dict(n_heads=cfg.n_heads, n_layers=cfg.n_layers, n_codebooks=cfg.n_codebooks,
+                  n_conditioning_codebooks=cfg.n_conditioning_codebooks,
+                  latent_dim=cfg.latent_dim, embedding_dim=cfg.embedding_dim,
+                  vocab_size=cfg.vocab_size, dropout=cfg.dropout)
+    torch.save({"state_dict": sd, "metadata": {"kwargs": kwargs}}, path)
+
+
+class HookCounter:
+    """Forward hooks on every LoRADense with adapters: `launches` counts the
+    adapter sites that ran (read by `serve` like a kernel's counter)."""
+
+    def __init__(self, *lms):
+        from vampnet_tpu_torch.modules.lora import LoRADense
+
+        self.launches = 0
+        self.hooks = [m.register_forward_hook(self.count) for lm in lms
+                      for m in lm.modules() if isinstance(m, LoRADense) and m.r > 0]
+
+    def count(self, *_):
+        self.launches += 1
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def record_codes(iface):
+    """Keep the codes each request hands the codec's decode (its tokens)."""
+    seen = []
+    decode = iface.codec.decode_codes
+
+    def recording(codes):
+        seen.append(codes.cpu())
+        return decode(codes)
+
+    iface.codec.decode_codes = recording
+    return seen
+
+
+def lora_state(module, gen):
+    """`random_state(fan_in=True)` weights (activations O(1) at any width),
+    and adapters about 3% of the product they sit beside: `lora_a`
+    normal / sqrt(fan-in), `lora_b` 0.1 normal (with the scale 1/8)."""
+    state = random_state(module, gen, fan_in=True)
+    for k, x in state.items():
+        if k.endswith(".lora_a"):
+            state[k] = x / x.shape[0] ** 0.5
+        elif k.endswith(".lora_b"):
+            state[k] = 0.1 * x
+    return state
+
+
+def file_gib(path) -> float:
+    import os
+
+    return os.path.getsize(path) / 2 ** 30
+
+
+def check_lora_lms_against_cpu():
+    """A small `lora_r=8` LM on the card (bf16 compute, through the attention
+    kernel; int8 through the w8a8 kernel as well) against the CPU's plain
+    fp32 path, from one set of weights and one input."""
+    import dataclasses
+
+    import torch
+
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.modules.quantize import quantize_lm_state_dict
+    from vampnet_tpu_torch.ops.flash_attention import flash_attention_with_bias
+    from vampnet_tpu_torch.ops.int8_matmul import w8a8_matmul
+
+    base = LMConfig(n_heads=2, n_layers=2, n_codebooks=4, embedding_dim=128, dropout=0.0,
+                    lora_r=8)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    lm32 = VampNetLM(dataclasses.replace(base, compute_dtype="float32"), device="cpu")
+    state = lora_state(lm32, cpu_gen)
+    codes = torch.randint(0, base.vocab_size + 1, (2, base.n_codebooks, 200), generator=cpu_gen)
+    cbs = torch.randn((base.n_codebooks, base.vocab_size, base.latent_dim), generator=cpu_gen)
+    result = {}
+    for label, kw in (("lora_bf16", {}), ("lora_int8", dict(quantization="int8"))):
+        sd = quantize_lm_state_dict(state) if kw else state
+        cfg = dataclasses.replace(base, **kw)
+        cpu_lm = VampNetLM(dataclasses.replace(cfg, compute_dtype="float32"), device="cpu")
+        cpu_lm.load_state_dict(sd)
+        lm = VampNetLM(cfg, device="meta").to_empty(device="cuda")
+        lm.load_state_dict(sd)
+        n0 = (flash_attention_with_bias.launches, w8a8_matmul.launches)
+        with torch.inference_mode():
+            got = lm.forward_codes(codes.cuda(), cbs.cuda()).cpu()
+            ref = cpu_lm.forward_codes(codes, cbs)
+        made = (flash_attention_with_bias.launches - n0[0], w8a8_matmul.launches - n0[1])
+        if made != (base.n_layers, 6 * base.n_layers if kw else 0):
+            raise AssertionError(f"the small {label} LM made (attention, w8a8) launches {made}")
+        err = float((got - ref).abs().max() / ref.abs().max())
+        # bf16 activations through 2 layers against fp32, as the other small LMs
+        if not err < 5e-2:
+            raise AssertionError(f"small {label} LM logits on the card vs CPU fp32: rel err {err}")
+        result[f"{label}_logits_rel_err"] = err
+    return result
+
+
+def serve_from_files(codec, sig, kw, counters, want, n_samples, busy_bf16, launches_bf16):
+    """Phase 13: the published architecture (LoRA rank 8 at every adapter
+    site, full width) served from checkpoint files that this run writes in
+    a temporary directory: reference-layout `.pth` LMs and a `.vtpu` codec,
+    then the converted LMs as `.vtpu`, then a models directory with a LoRA
+    fine-tune. Returns the phase's summary and the kernels' launches over
+    its first (bf16, `.pth`) run."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vampnet_tpu_torch.checkpoints import load_lm, save_codec, save_lm
+    from vampnet_tpu_torch.interface import Interface
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.modules.lora import LORA_LEAVES, LORA_R
+    from vampnet_tpu_torch.util import flatten_tree, unflatten_tree
+
+    t_phase = time.perf_counter()
+    # nothing here may reach the network: a missing file must fail as it
+    # fails offline
+    sys.modules["huggingface_hub"] = None
+    cfgs = {"coarse": LMConfig.coarse(lora_r=LORA_R), "c2f": LMConfig.c2f(lora_r=LORA_R)}
+    n_params = sum(v.numel() for cfg in cfgs.values()
+                   for v in VampNetLM(cfg, device="meta").state_dict().values())
+    # an fp32 .pth and .vtpu of each LM, a bf16 fine-tune, the codec; a margin
+    need = 1.25 * (n_params * (4 + 4 + 2) + sum(v.numel() * 4 for v in codec.state_dict().values()))
+    gen = torch.Generator().manual_seed(SEED + 13)
+    sizes, seconds = {}, {}
+    n_sites = 5 * (cfgs["coarse"].n_layers + cfgs["c2f"].n_layers)
+    n_layer_calls = want["attention_fwd"]
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoints_") as tmp:
+        root = Path(tmp)
+        models = root / "models"
+        free = shutil.disk_usage(root).free
+        if free < need:
+            raise AssertionError(f"phase 13 needs {need / 2 ** 30:.1f} GiB free in {root}, "
+                                 f"which has {free / 2 ** 30:.1f} GiB")
+        # ---- 13.1-2: random LoRA LMs, written in upstream's layout ----
+        states = {}
+        for name, cfg in cfgs.items():
+            st = states[name] = lora_state(VampNetLM(cfg, device="meta"), gen)
+            timed(f"write {name}.pth", lambda: write_reference_lm(root / f"{name}.pth", st, cfg))
+            sizes[f"{name}.pth"] = file_gib(root / f"{name}.pth")
+        codec_tree = unflatten_tree({tuple(k.split(".")): v.cpu()
+                                     for k, v in codec.state_dict().items()})
+        timed("write codec.vtpu", lambda: save_codec(models / "codec.vtpu", codec.config,
+                                                      codec_tree))
+        sizes["codec.vtpu"] = file_gib(models / "codec.vtpu")
+
+        # ---- 13.3: serve from the .pth files ----
+        pth = timed("load .pth interface", lambda: Interface.from_checkpoints(
+            coarse_ckpt=root / "coarse.pth", coarse2fine_ckpt=root / "c2f.pth",
+            codec_ckpt=models / "codec.vtpu", device="cuda"))
+        for name in cfgs:
+            loaded = getattr(pth, name).state_dict()
+            for k, x in states[name].items():
+                want_x = x.to(torch.bfloat16)
+                got_x = loaded[k].cpu()
+                if k == "classifier.weight":  # g v / |v|: within a rounding of bf16
+                    ok = bool(((got_x.float() - want_x.float()).abs()
+                               <= 2 ** -7 * want_x.float().abs()).all())
+                else:
+                    ok = torch.equal(got_x, want_x)
+                if not ok:
+                    raise AssertionError(f"{name} {k} loaded from .pth differs from its source")
+        del states
+        hooks = HookCounter(pth.coarse, pth.c2f)
+        lora_counters = dict(counters, lora_sites=hooks)
+        want_lora = dict(want, lora_sites=5 * n_layer_calls)  # 5 adapter sites a layer
+        pth_codes = record_codes(pth)
+        served_pth, launches = serve("lora .pth", lambda i: pth.vamp_e2e(
+            sig, seed=SEED + i, **kw), REQUESTS, lora_counters, want_lora, n_samples)
+        hooks.remove()
+        if len(hooks.hooks) != n_sites:
+            raise AssertionError(f"{len(hooks.hooks)} LoRA sites, want {n_sites}")
+        saved = {}
+        for lm in (pth.coarse, pth.c2f):
+            for n_, p_ in lm.named_parameters():
+                if n_.endswith(".lora_b"):
+                    saved[p_] = p_.detach().clone()
+                    p_.data.zero_()
+        pth.vamp_e2e(sig, seed=SEED, **kw)
+        for p_, x in saved.items():
+            p_.data.copy_(x)
+        moved = float((pth_codes[-1] != pth_codes[0]).float().mean())
+        if moved == 0.0:
+            raise AssertionError("zeroing lora_b left every token as it was")
+        del pth_codes[REQUESTS:], saved
+
+        # ---- 13.4: the converted LMs as .vtpu, served again ----
+        trees = {}
+        for name in cfgs:
+            cfg, trees[name] = timed(f"convert {name}.pth", lambda: load_lm(root / f"{name}.pth"))
+            timed(f"write {name}.vtpu", lambda: save_lm(models / f"{name}.vtpu", cfg, trees[name]))
+            sizes[f"{name}.vtpu"] = file_gib(models / f"{name}.vtpu")
+            os.remove(root / f"{name}.pth")
+        del pth
+        torch.cuda.empty_cache()
+        vt = timed("load .vtpu interface", lambda: Interface.from_checkpoints(
+            coarse_ckpt=models / "coarse.vtpu", coarse2fine_ckpt=models / "c2f.vtpu",
+            codec_ckpt=models / "codec.vtpu", device="cuda"))
+        vt_codes = record_codes(vt)
+        served_vtpu, _ = serve("lora .vtpu", lambda i: vt.vamp_e2e(sig, seed=SEED + i, **kw),
+                               REQUESTS, counters, want, n_samples)
+        if not all(torch.equal(a, b) for a, b in zip(vt_codes, pth_codes)):
+            raise AssertionError("the .vtpu-loaded Interface's tokens differ from the .pth one's")
+        busy_lora, n_lora = profile("lora request", lambda: vt.vamp_e2e(sig, seed=99, **kw),
+                                    totals=("nvjet", "sampler_kernel"))
+        print(f"profile: lora request busy {busy_lora:.1f} ms in {n_lora} kernel launches, "
+              f"bf16 request busy {busy_bf16:.1f} ms in {launches_bf16} (phase 7; one "
+              f"request each, the same signal and settings)")
+
+        # ---- 13.5: a models directory with a fine-tune ----
+        ft_name = "smoke_finetune"
+        for name, cfg in cfgs.items():
+            ft = {p: (torch.randn(x.shape, generator=gen) * (
+                      x.shape[0] ** -0.5 if p[-1] == "lora_a" else 0.1)
+                      if p[-1] in LORA_LEAVES else x).to(torch.bfloat16)
+                  for p, x in flatten_tree(trees[name]).items()}
+            path = models / "loras" / ft_name / f"{name}.vtpu"
+            timed(f"write fine-tune {name}.vtpu (bf16)",
+                  lambda: save_lm(path, cfg, unflatten_tree(ft)))
+            sizes[f"loras/{ft_name}/{name}.vtpu"] = file_gib(path)
+        del trees, ft
+        os.environ["VAMPNET_MODELS_DIR"] = str(models)
+        from vampnet_tpu_torch import registry
+
+        if registry.MODELS_DIR != models:
+            raise AssertionError(f"registry read its models directory before it was set: "
+                                 f"{registry.MODELS_DIR}")
+        available = Interface.available_models()
+        if available != [ft_name, "default"]:
+            raise AssertionError(f"available_models() = {available}")
+        dflt = timed("Interface.default()", Interface.default)
+        d_codes = record_codes(dflt)
+        served_default, _ = serve("default", lambda i: dflt.vamp_e2e(sig, seed=SEED, **kw), 1,
+                                  counters, want, n_samples)
+        if not torch.equal(d_codes[0], pth_codes[0]):
+            raise AssertionError("Interface.default() gives other tokens than its .pth source")
+        timed("load_finetuned", lambda: dflt.load_finetuned(ft_name))
+        served_ft, _ = serve("fine-tune", lambda i: dflt.vamp_e2e(sig, seed=SEED, **kw), 1,
+                             counters, want, n_samples)
+        ft_moved = float((d_codes[1] != d_codes[0]).float().mean())
+        if ft_moved == 0.0:
+            raise AssertionError("load_finetuned left every token as it was")
+        before = (dflt.coarse, dflt.c2f)
+        timed("reload with the same paths", lambda: dflt.reload(dflt.coarse_path, dflt.c2f_path))
+        if (dflt.coarse, dflt.c2f) != before:
+            raise AssertionError("reload with the loaded paths swapped the models")
+        del dflt, d_codes
+        torch.cuda.empty_cache()
+
+        # ---- 13.6: int8 serving of the LoRA Interface ----
+        timed("quantize", vt.quantize)
+        hooks = HookCounter(vt.coarse, vt.c2f)
+        want_int8 = dict(want_lora, w8a8_matmul=6 * n_layer_calls)
+        served_int8, int8_launches = serve(
+            "lora int8", lambda i: vt.vamp_e2e(sig, seed=SEED + i, **kw), OPTION_REQUESTS,
+            dict(counters, lora_sites=hooks), want_int8, n_samples)
+        hooks.remove()
+        busy_int8, n_int8 = profile("lora int8 request",
+                                    lambda: vt.vamp_e2e(sig, seed=98, **kw),
+                                    totals=("w8a8_wgmma_kernel", "nvjet"))
+        del vt
+        torch.cuda.empty_cache()
+
+    # ---- 13.7: a small LoRA LM on the card against the CPU ----
+    cpu = check_lora_lms_against_cpu()
+    print("cpu check: " + json.dumps(cpu))
+    summary = dict(sizes_gib=sizes, seconds=seconds, served_pth=served_pth,
+                   served_vtpu=served_vtpu, served_default=served_default,
+                   served_finetune=served_ft, served_int8=served_int8,
+                   zeroed_lora_b_tokens_moved=moved, finetune_tokens_moved=ft_moved,
+                   lora_busy_ms=busy_lora, lora_kernel_launches=n_lora,
+                   lora_int8_busy_ms=busy_int8, lora_int8_kernel_launches=n_int8,
+                   cpu=cpu, phase_s=time.perf_counter() - t_phase)
+    print("checkpoint phase: " + json.dumps(summary))
+    return summary, launches, int8_launches
 
 def main() -> int:
     import numpy as np
@@ -1321,7 +1653,7 @@ def main() -> int:
 
     # ---- 7. where a request's time goes ----
     # nvjet: cuBLAS's GEMMs (the LMs' projections and classifiers)
-    busy_bf16 = profile("request", lambda: iface.vamp_e2e(sig, seed=99, **kw),
+    busy_bf16, launches_bf16 = profile("request", lambda: iface.vamp_e2e(sig, seed=99, **kw),
                         totals=("nvjet", "sampler_kernel"))
 
     # ---- 8. long-context requests through the staged API ----
@@ -1361,7 +1693,7 @@ def main() -> int:
         "fused-ffn", lambda i: fused_iface.vamp_e2e(sig, seed=SEED + i, **kw), OPTION_REQUESTS,
         counters, want_fused, n_samples)
     launches["fused_geglu_ffn"] = fused_launches["fused_geglu_ffn"]
-    busy_fused = profile("fused-ffn request", lambda: fused_iface.vamp_e2e(sig, seed=96, **kw),
+    busy_fused, _ = profile("fused-ffn request", lambda: fused_iface.vamp_e2e(sig, seed=96, **kw),
                          totals=("rms_norm_kernel", "ffn_gemm_kernel", "nvjet"))
     print(f"profile: fused-ffn request busy {busy_fused:.1f} ms, bf16 request busy "
           f"{busy_bf16:.1f} ms (one request each, the same signal and settings)")
@@ -1385,13 +1717,17 @@ def main() -> int:
     served_int8, int8_launches = serve("int8", lambda i: iface.vamp_e2e(sig, seed=SEED + i, **kw),
                                        OPTION_REQUESTS, counters, want_int8, n_samples)
     launches["w8a8_matmul"] = int8_launches["w8a8_matmul"]
-    busy_int8 = profile("int8 request", lambda: iface.vamp_e2e(sig, seed=98, **kw),
+    busy_int8, _ = profile("int8 request", lambda: iface.vamp_e2e(sig, seed=98, **kw),
                         totals=("row_quant_kernel", "w8a8_wgmma_kernel", "nvjet"))
     print(f"profile: int8 request busy {busy_int8:.1f} ms, bf16 request busy {busy_bf16:.1f} ms "
           f"(one request each, the same signal and settings)")
 
     # ---- 12. the two options on the card against the CPU ----
     print("cpu check: " + json.dumps(check_options_against_cpu(gen)))
+
+    # ---- 13. the published architecture (LoRA r=8) from checkpoint files ----
+    files, lora_launches, lora_int8_launches = serve_from_files(
+        iface.codec, sig, kw, counters, want, n_samples, busy_bf16, launches_bf16)
 
     def entry(name, source, replaces, res, main="coarse"):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1403,7 +1739,8 @@ def main() -> int:
 
     kernels = [
         dict(entry("attention_fwd", "vampnet_tpu_torch/csrc/attention_fwd.cu",
-                   "vampnet_tpu/ops/flash_attention.py:120", attn), registers=fwd_regs),
+                   "vampnet_tpu/ops/flash_attention.py:120", attn), registers=fwd_regs,
+             launches_lora=lora_launches["attention_fwd"]),
         dict(entry("attention_fwd_masked", "vampnet_tpu_torch/csrc/attention_fwd.cu",
                    "vampnet_tpu/ops/flash_attention.py:93", results["attention_fwd_masked"]),
              also_replaces="without a mask at 896 < t <= 1024: attention_fwd (K1) at t948",
@@ -1413,7 +1750,8 @@ def main() -> int:
                    main=f"t{t_long}"),
              launches_path="staged requests with a 20 s coarse chunk"),
         dict(entry("sampler", "vampnet_tpu_torch/csrc/sampler.cu",
-                   "vampnet_tpu/ops/sampler_kernel.py:80", samp), registers=sampler_regs),
+                   "vampnet_tpu/ops/sampler_kernel.py:80", samp), registers=sampler_regs,
+             launches_lora=lora_launches["sampler"]),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, replaces, also in (
@@ -1454,7 +1792,8 @@ def main() -> int:
         entry("w8a8_matmul", "vampnet_tpu_torch/csrc/int8_matmul.cu",
               "vampnet_tpu/ops/int8_matmul.py:36", results["w8a8_matmul"], main="coarse_w_1"),
         main_shape=f"coarse w_1: m={m_rows['coarse']} k={d_model} n={4 * d_model}",
-        launches_per_request=6 * n_layer_calls, registers=w8a8_regs))
+        launches_per_request=6 * n_layer_calls, registers=w8a8_regs,
+        launches_lora_int8=lora_int8_launches["w8a8_matmul"]))
     kernels.append(dict(
         entry("fused_geglu_ffn", "vampnet_tpu_torch/csrc/ffn.cu",
               "vampnet_tpu/ops/ffn_kernel.py:44", results["fused_geglu_ffn"]),

@@ -13,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "vampnet_tpu",
-           "msgpack", "yaml", "soundfile", "triton")
+           "msgpack", "yaml", "soundfile", "triton", "huggingface_hub")
 
 _IMPORT_ALL = f"""
 import importlib, importlib.abc, pkgutil, sys

@@ -83,8 +83,11 @@ def test_forward_codes_bf16_close_to_fp32():
 
 
 def test_lora_rank_above_zero_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        LoRADense(4, 4, r=8, device="cpu")
+    # ported since: rank 8 adds the flax-shaped adapters, a no-op when fresh
+    dense = LoRADense(4, 6, r=8, compute_dtype=torch.float32, device="cpu")
+    assert tuple(dense.lora_a.shape) == (4, 8) and tuple(dense.lora_b.shape) == (8, 6)
+    x = torch.randn(3, 4)
+    torch.testing.assert_close(dense(x), x @ dense.weight.T, rtol=0, atol=0)
 
 
 def test_w_ks_takes_no_lora_rank(monkeypatch):

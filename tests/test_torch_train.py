@@ -43,8 +43,8 @@ TRAIN_KW = dict(n_heads=2, n_layers=2, latent_dim=4, embedding_dim=128, vocab_si
                 n_codebooks=4)
 
 
-def _lm_configs(ncc):
-    kw = dict(TRAIN_KW, n_conditioning_codebooks=ncc, compute_dtype="float32")
+def _lm_configs(ncc, lora_r=0):
+    kw = dict(TRAIN_KW, n_conditioning_codebooks=ncc, compute_dtype="float32", lora_r=lora_r)
     return JLMConfig(dropout=0.0, **kw), LMConfig(dropout=0.0, **kw)
 
 
@@ -182,8 +182,8 @@ def test_optimizer_updates_match_optax(grad_scale):
 # ---------------------------------------------------------------- the step
 
 
-def _setup(ncc, seed=0):
-    jcfg, tcfg = _lm_configs(ncc)
+def _setup(ncc, seed=0, lora_r=0):
+    jcfg, tcfg = _lm_configs(ncc, lora_r)
     jccfg, tccfg = JCodecConfig(**CODEC_KW), CodecConfig(**CODEC_KW)
     lm_np, codec_np = lm_params_np(jcfg, seed), codec_params_np(jccfg, seed + 1)
     lm = VampNetLM(tcfg, device="cpu")
@@ -212,9 +212,10 @@ def test_reverse_bridge_round_trips():
         np.testing.assert_array_equal(got[key], want[key], err_msg=str(key))
 
 
-@pytest.mark.parametrize("ncc", [0, 2])
-def test_loss_and_grads_match_jax_value_and_grad(ncc):
-    jcfg, jlm, _jcodec, lm, _codec, lm_np, _codec_np, cbs = _setup(ncc, seed=4)
+@pytest.mark.parametrize("ncc,lora_r", [pytest.param(0, 0, id="0"), pytest.param(2, 0, id="2"),
+                                         pytest.param(0, 2, id="0-lora_r2")])
+def test_loss_and_grads_match_jax_value_and_grad(ncc, lora_r):
+    jcfg, jlm, _jcodec, lm, _codec, lm_np, _codec_np, cbs = _setup(ncc, seed=4, lora_r=lora_r)
     rng = np.random.default_rng(5)
     b, t = 2, 24
     z = rng.integers(0, jcfg.vocab_size, (b, jcfg.n_codebooks, t))

@@ -68,8 +68,10 @@ def _codec_leaf(name, shape, rng):
 
 
 def _lm_leaf(name, shape, rng):
-    if name == "kernel":
+    if name in ("kernel", "lora_a"):
         return rng.standard_normal(shape) / np.sqrt(shape[0])
+    if name == "lora_b":  # the adapters move the output by a tenth or so
+        return 0.2 * rng.standard_normal(shape) / np.sqrt(shape[0])
     if name == "weight":  # RMSNorm scale
         return 1.0 + 0.1 * rng.standard_normal(shape)
     if name == "bias":

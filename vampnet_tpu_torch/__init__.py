@@ -17,8 +17,15 @@ Layer map (mirrors `vampnet_tpu`):
   modules/   the masked-token transformer LM
   sampling/  MaskGIT sampling loop and token samplers
   ops/       attention dispatcher + the hand-written kernels' wrappers
-  interface  `Interface`: `vamp_e2e` (one call) and the staged API
-             (`encode`, `build_mask`, `set_chunk_size`, `vamp`, `decode`)
-  convert    flax param tree (numpy) -> port state dicts
+  interface  `Interface`: `from_checkpoints`, `vamp_e2e` (one call), the
+             staged API (`encode`, `build_mask`, `set_chunk_size`, `vamp`,
+             `decode`) and `load_finetuned`/`reload`
+  convert    flax-shaped param trees <-> port state dicts; upstream .pth
+             checkpoints -> flax-shaped trees
+  checkpoints  `.vtpu` files (shared with the JAX package) and `.pth` loads
+  registry   the local models directory and the LoRA fine-tunes in it
 """
 __version__ = "0.1.0"
+
+DEFAULT_MODEL = "default"
+DEFAULT_HF_MODEL_REPO = "hugggof/vampnet"

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,9 +22,9 @@ from .layers import Snake1d, WNConv1d, WNConvTranspose1d, no_tf32
 
 @dataclasses.dataclass(frozen=True)
 class CodecConfig:
-    """The JAX `CodecConfig`'s architecture fields and defaults. The port
-    runs fp32 with the `conv_impl="xla"` semantics only, so the JAX
-    package's dtype and conv-schedule options are not carried over."""
+    """The JAX `CodecConfig`'s fields and defaults. The port runs fp32 with
+    the `conv_impl="xla"` semantics only: `LAC` refuses any other value of
+    the three schedule fields (ROADMAP Queue A item 3)."""
 
     sample_rate: int = 44100
     encoder_dim: int = 64
@@ -34,6 +34,9 @@ class CodecConfig:
     n_codebooks: int = 14
     codebook_size: int = 1024
     codebook_dim: int = 8
+    compute_dtype: str = "float32"
+    conv_impl: str = "xla"
+    decoder_compute_dtype: Optional[str] = None
 
     @property
     def hop_length(self) -> int:
@@ -199,6 +202,11 @@ class LAC(nn.Module):
             from ..util import resolve_device
 
             device = resolve_device(device)
+        options = (config.compute_dtype, config.conv_impl, config.decoder_compute_dtype)
+        if options != ("float32", "xla", None):
+            raise NotImplementedError(
+                f"codec compute_dtype/conv_impl/decoder_compute_dtype {options}: the port "
+                "runs ('float32', 'xla', None) only; ROADMAP Queue A item 3")
         self.config = config
         self.encoder = Encoder(config, device=device)
         self.quantizer = ResidualVectorQuantize(config, device=device)

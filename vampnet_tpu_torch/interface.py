@@ -1,7 +1,10 @@
 """Serving entry point (counterpart of `vampnet_tpu/interface.py`):
-`Interface.from_modules`, `quantize`, the staged API (`encode`,
-`build_mask`, `set_chunk_size`, `vamp` with `coarse_vamp` and
-`coarse_to_fine`, `decode`) and the one-call `vamp_e2e`.
+`Interface.from_checkpoints` (the JAX `Interface(...)`: `.vtpu` or upstream
+`.pth` files, LoRA-only overlays), `default`, `load_finetuned` and `reload`
+(the local models directory, `registry.py`), `Interface.from_modules`,
+`quantize`, the staged API (`encode`, `build_mask`, `set_chunk_size`, `vamp`
+with `coarse_vamp` and `coarse_to_fine`, `decode`) and the one-call
+`vamp_e2e`.
 
 The staged API is the sequence the JAX package's Gradio app, web app and
 token telephone run: encode -> build_mask -> set_chunk_size -> vamp ->
@@ -24,15 +27,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Mapping, Optional
+from pathlib import Path
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import convert
 from . import mask as pmask
 from .audio import AudioSignal
+from .checkpoints import load_codec, load_lm
 from .codec import LAC, CodecConfig
 from .modules import LMConfig, VampNetLM
 from .modules.quantize import quantize_lm_state_dict
@@ -54,6 +60,14 @@ def _load(module: nn.Module, state: Mapping, device: torch.device,
              for k, v in state.items()}
     module.load_state_dict(state, strict=True)
     return module.requires_grad_(False).eval()
+
+
+def _lm_from_file(path, lora_path, device: torch.device) -> VampNetLM:
+    """An LM checkpoint (and a LoRA-only overlay) on `device`, weights in
+    bf16."""
+    cfg, tree = load_lm(path, lora_path)
+    return _load(VampNetLM(cfg, device="meta"), convert.lm_state_dict_from_jax(tree, cfg),
+                 device, torch.bfloat16)
 
 
 # the keyword arguments of a vamp that coarse_to_fine also takes (the JAX
@@ -80,6 +94,103 @@ class Interface:
         self.device = next(codec.parameters()).device
         self.loudness = -24.0
         self.codebooks = codec.codebook_tables()  # (n_cb, vocab, codebook_dim)
+        # the files the models came from (`from_checkpoints`, `reload`)
+        self.codec_path: Optional[Path] = None
+        self.coarse_path: Optional[Path] = None
+        self.c2f_path: Optional[Path] = None
+
+    @classmethod
+    def from_checkpoints(
+        cls,
+        coarse_ckpt: Optional[str] = None,
+        coarse_lora_ckpt: Optional[str] = None,
+        coarse2fine_ckpt: Optional[str] = None,
+        coarse2fine_lora_ckpt: Optional[str] = None,
+        codec_ckpt: Optional[str] = None,
+        wavebeat_ckpt: Optional[str] = None,
+        device="cuda",
+        coarse_chunk_size_s: float = 10,
+        coarse2fine_chunk_size_s: float = 3,
+        codec_overrides: Optional[Dict[str, Any]] = None,
+    ) -> "Interface":
+        """The JAX package's file-based `Interface(...)`: the codec and the
+        LMs from `.vtpu` or upstream `.pth` files, each LM with an optional
+        LoRA-only overlay. LM weights are stored bf16, the codec fp32, as in
+        `from_modules`. `codec_overrides` may only restate the port's
+        defaults: its other codec schedules are not ported."""
+        device = resolve_device(device)
+        if codec_ckpt is None or coarse_ckpt is None:
+            raise ValueError("from_checkpoints needs a codec and a coarse checkpoint")
+        if wavebeat_ckpt is not None:
+            raise NotImplementedError(
+                "beat tracking (wavebeat_ckpt) is not ported: ROADMAP Queue A item 9, "
+                "beats.py + wavebeat.py")
+        default_codec = CodecConfig()
+        changed = {k: v for k, v in (codec_overrides or {}).items()
+                   if getattr(default_codec, k) != v}
+        if changed:
+            raise NotImplementedError(
+                f"codec_overrides {changed}: the codec's compute options are not ported, "
+                "ROADMAP Queue A item 3")
+        codec_cfg, codec_tree = load_codec(codec_ckpt)
+        codec_cfg = dataclasses.replace(codec_cfg, **(codec_overrides or {}))
+        codec = _load(LAC(codec_cfg, device="meta"),
+                      convert.codec_state_dict_from_jax(codec_tree, codec_cfg), device,
+                      torch.float32)
+        del codec_tree
+        coarse = _lm_from_file(coarse_ckpt, coarse_lora_ckpt, device)
+        c2f = None
+        if coarse2fine_ckpt is not None:
+            c2f = _lm_from_file(coarse2fine_ckpt, coarse2fine_lora_ckpt, device)
+        self = cls(codec, coarse, c2f, coarse_chunk_size_s, coarse2fine_chunk_size_s)
+        self.codec_path, self.coarse_path = Path(codec_ckpt), Path(coarse_ckpt)
+        self.c2f_path = Path(coarse2fine_ckpt) if coarse2fine_ckpt is not None else None
+        return self
+
+    @classmethod
+    def default(cls, device="cuda") -> "Interface":
+        """The models directory's codec, coarse and c2f checkpoints
+        (`registry.py`; beat tracking is not ported, so no wavebeat)."""
+        from .registry import download_codec, download_default
+
+        codec_path = download_codec()
+        coarse_path, c2f_path = download_default()
+        return cls.from_checkpoints(coarse_ckpt=coarse_path, coarse2fine_ckpt=c2f_path,
+                                    codec_ckpt=codec_path, device=device)
+
+    @classmethod
+    def available_models(cls):
+        """The fine-tunes in the models directory, then "default"."""
+        from .registry import list_finetuned
+
+        return list_finetuned() + ["default"]
+
+    def load_finetuned(self, name: str):
+        """Swap in the fine-tune `name` (or "default") from the models
+        directory."""
+        if name not in self.available_models():
+            raise ValueError(f"{name} is not a valid model name: {self.available_models()}")
+        from .registry import download_default, download_finetuned
+
+        if name == "default":
+            coarse_path, c2f_path = download_default()
+        else:
+            coarse_path, c2f_path = download_finetuned(name)
+        self.reload(coarse_ckpt=coarse_path, c2f_ckpt=c2f_path)
+
+    def reload(self, coarse_ckpt: Optional[str] = None, c2f_ckpt: Optional[str] = None):
+        """Swap LM checkpoints in. A path equal to the loaded one loads
+        nothing. A swapped LM keeps the chunk size and takes its file's
+        config, so after `quantize()` it is bf16 again, as in the JAX
+        package."""
+        if coarse_ckpt is not None and self.coarse_path != Path(coarse_ckpt):
+            lm = _lm_from_file(coarse_ckpt, None, self.device)
+            lm.chunk_size_s = self.coarse.chunk_size_s
+            self.coarse, self.coarse_path = lm, Path(coarse_ckpt)
+        if c2f_ckpt is not None and self.c2f_path != Path(c2f_ckpt):
+            lm = _lm_from_file(c2f_ckpt, None, self.device)
+            lm.chunk_size_s = self.c2f.chunk_size_s if self.c2f is not None else 3
+            self.c2f, self.c2f_path = lm, Path(c2f_ckpt)
 
     @classmethod
     def from_modules(cls, codec_cfg: CodecConfig, codec_params: Mapping,
@@ -107,12 +218,10 @@ class Interface:
         embeddings and the classifier stay bf16. Tokens may differ slightly
         from the bf16 path. The weights are quantized from the bf16-stored
         ones, as the JAX package does, and the bf16 kernels they replace are
-        dropped. Calling it again does nothing."""
-        if self.coarse.config.quantization == "int8":
-            return self
+        dropped. An LM already int8 is left as it is."""
         for name in ("coarse", "c2f"):
             lm = getattr(self, name)
-            if lm is None:
+            if lm is None or lm.config.quantization == "int8":
                 continue
             cfg = dataclasses.replace(lm.config, quantization="int8")
             state = quantize_lm_state_dict(lm.state_dict())

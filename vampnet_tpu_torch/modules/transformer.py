@@ -21,14 +21,15 @@ residual add as one kernel (`ops/ffn_kernel.py`). `attention_impl` picks the
 attention route (`ops/attention.py`): "auto" (the kernels on the card),
 "pallas", "xla" (the library call) or "ring" (not ported). `TransformerStack`
 takes an attention mask `x_mask` (b, t, t) or (b, 1, t, t), 0 = blocked, as
-the JAX stack does; `VampNetLM` passes none, as in JAX. Not ported yet:
-ControlEncoder, ring attention and remat.
+the JAX stack does; `VampNetLM` passes none, as in JAX. LoRA adapters
+(`lora_r > 0`) sit on w_qs, w_vs, fc, w_1 and w_2 (`modules/lora.py`). Not
+ported yet: ControlEncoder (`ctrl_dims`), ring attention and remat.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -58,7 +59,10 @@ class LMConfig:
     attention_max_distance: int = 128
     attention_impl: str = "auto"  # auto | pallas | xla | ring (ops/attention.py)
     ffn_impl: str = "auto"  # auto | xla | fused; "auto" is the unfused path, as in JAX
+    remat: bool = False  # recompute each layer in the backward; not ported (item 5)
     quantization: Optional[str] = None  # None | "int8" (w8a8 projections)
+    ctrl_dims: Optional[Tuple[Tuple[str, int], ...]] = None  # ControlEncoder; not ported (item 4)
+    cfg_dropout_prob: float = 0.2
     compute_dtype: str = "bfloat16"
 
     @property
@@ -274,6 +278,10 @@ class VampNetLM(nn.Module):
 
             device = resolve_device(device)
         cfg = self.config = config
+        if cfg.ctrl_dims is not None:
+            raise NotImplementedError(
+                "control inputs (LMConfig.ctrl_dims, the ControlEncoder) are not ported: "
+                "ROADMAP Queue A item 4")
         self.embedding = CodebookEmbedding(
             cfg.latent_dim, cfg.n_codebooks, cfg.embedding_dim,
             compute_dtype=cfg.dtype, device=device,

@@ -179,6 +179,10 @@ def make_train_step(lm_model, codec_model, optimizer: Optimizer,
     forward, loss and grads -> clip and AdamW. The tests hand it the JAX
     step's r and mask."""
     cfg = lm_model.config
+    if cfg.remat:
+        raise NotImplementedError(
+            "LMConfig.remat (recompute each layer in the backward) is not ported: "
+            "ROADMAP Queue A item 5")
     n_cb, ncc, mask_token = cfg.n_codebooks, cfg.n_conditioning_codebooks, cfg.mask_token
 
     def with_mask(state: TrainState, codebooks, z, r, mask, generator=None):

@@ -2,9 +2,13 @@
 `vampnet_tpu/util.py`).
 
 The classifier and the sampler work on a flattened (batch, time*codebook)
-layout, time-major and codebook-minor ("b c t -> b (t c)").
+layout, time-major and codebook-minor ("b c t -> b (t c)"). Param trees are
+nested dicts, flattened to key paths and back by `flatten_tree` and
+`unflatten_tree`.
 """
 from __future__ import annotations
+
+from typing import Any, Dict, Mapping
 
 import torch
 
@@ -37,3 +41,25 @@ def resolve_device(device) -> torch.device:
             "False; pass device='cpu' to run the plain PyTorch path"
         )
     return device
+
+
+def flatten_tree(tree: Mapping, prefix: tuple = ()) -> Dict[tuple, Any]:
+    """A nested dict (a flax-shaped param tree) -> {key path tuple: leaf}."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            out.update(flatten_tree(val, prefix + (key,)))
+        else:
+            out[prefix + (key,)] = val
+    return out
+
+
+def unflatten_tree(flat: Mapping[tuple, Any]) -> Dict:
+    """The inverse of `flatten_tree`."""
+    tree: Dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
