@@ -33,6 +33,16 @@ Phases, each of which must pass (no failure is caught):
      a 20 s coarse chunk on 20 s of audio (t = 1,723, the long forward K9)
      and an 11 s chunk on 10 s (t = 948); check launches and outputs;
      profile one;
+ 8b. serve through the continuous-batching engine and the stdlib web app
+     (`serve_engine_and_webapp`, while the Interface is still bf16): 16
+     requests on one 10 s signal, one at a time twice (bit for bit) and all
+     at once (batched, K1 272 and K10 14 launches a group; each request's
+     batched tokens within 0.02 of its solo ones, and its solo ones within
+     0.02 of direct per-row-seed staged calls); one 8-request group
+     profiled; the card's idle share at pipeline_depth 1 and 2; then 4
+     concurrent web clients POSTing the 10 s WAV for two variations each,
+     and one ?format=wav request; throughput, latency, busy time, peak
+     memory and idle share printed beside the card;
   9. run a full-width masked `TransformerStack` (b=8, t=862, key-padding
      `x_mask`) forward and backward (the masked training kernels, K5) and
      then forward without grad (the masked forward, K3); check a small
@@ -70,6 +80,7 @@ JSON line with every kernel's numbers, the card line again, and
 `{"ok": true, "device": ...}` as the last line. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
+import base64
 import json
 import math
 import subprocess
@@ -82,6 +93,9 @@ LONG_REQUESTS = 3  # staged requests with a 20 s coarse chunk
 OPTION_REQUESTS = 4  # per serving option (fused FFN, int8)
 TRAIN_STEPS = 5
 TRAIN_BATCH = 8
+ENGINE_REQUESTS = 16  # concurrent requests through the serving engine
+HTTP_CLIENTS = 4  # concurrent clients of the web app
+SOLO_BATCHED_BOUND = 0.02  # share of a request's tokens that may differ batched vs solo
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
@@ -736,10 +750,12 @@ def check_against_cpu(iface, gen):
                 codec_wave_rel_err=wav_err)
 
 
-def profile(label, fn, totals=()):
+def profile(label, fn, totals=(), hits=None):
     """Device time by kernel over one call of fn (torch.profiler); also the
     time and launches of the kernels whose names hold each fragment in
-    `totals`. Returns (the busy time in ms, the kernel launches)."""
+    `totals`, which go into the dict `hits` where one is given as
+    {fragment: (ms, launches)}. Returns (the busy time in ms, the kernel
+    launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -762,8 +778,10 @@ def profile(label, fn, totals=()):
         print(f"profile {label}:   {us / 1e3:9.2f} ms  x{count:<6d} {key[:90]}")
     for fragment in totals:
         hit = [r for r in rows if fragment in r[1]]
-        print(f"profile {label}: {sum(r[0] for r in hit) / 1e3:.2f} ms in "
-              f"{sum(r[2] for r in hit)} launches of {fragment}")
+        ms, count = sum(r[0] for r in hit) / 1e3, sum(r[2] for r in hit)
+        print(f"profile {label}: {ms:.2f} ms in {count} launches of {fragment}")
+        if hits is not None:
+            hits[fragment] = (ms, count)
     return busy_ms, n_launches
 
 
@@ -1287,6 +1305,7 @@ def serve_from_files(codec, sig, kw, counters, want, n_samples, busy_bf16, launc
     then the converted LMs as `.vtpu`, then a models directory with a LoRA
     fine-tune. Returns the phase's summary and the kernels' launches over
     its first (bf16, `.pth`) run."""
+    import importlib
     import os
     import shutil
     import tempfile
@@ -1418,6 +1437,9 @@ def serve_from_files(codec, sig, kw, counters, want, n_samples, busy_bf16, launc
         os.environ["VAMPNET_MODELS_DIR"] = str(models)
         from vampnet_tpu_torch import registry
 
+        # the registry reads the variable when it is imported, and phase 8b's
+        # web app (/health) imported it already
+        importlib.reload(registry)
         if registry.MODELS_DIR != models:
             raise AssertionError(f"registry read its models directory before it was set: "
                                  f"{registry.MODELS_DIR}")
@@ -1469,6 +1491,265 @@ def serve_from_files(codec, sig, kw, counters, want, n_samples, busy_bf16, launc
                    cpu=cpu, phase_s=time.perf_counter() - t_phase)
     print("checkpoint phase: " + json.dumps(summary))
     return summary, launches, int8_launches
+
+def engine_run(engine, reqs, timeout=600):
+    """Submit `reqs` at once; (outputs, wall s, each request's latency s)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = [0.0] * len(reqs)
+    futs = []
+    for i, r in enumerate(reqs):
+        fut = engine.submit(r)
+        fut.add_done_callback(lambda f, i=i: done.__setitem__(i, time.perf_counter()))
+        futs.append(fut)
+    outs = [f.result(timeout=timeout) for f in futs]
+    wall = time.perf_counter() - t0
+    return outs, wall, [d - t0 for d in done]
+
+
+def token_share(a, b) -> float:
+    """The share of tokens that differ between two outputs of one shape."""
+    if a.shape != b.shape:
+        raise AssertionError(f"token shapes differ: {a.shape} vs {b.shape}")
+    return float((a != b).mean())
+
+
+def serve_engine_and_webapp(iface, sig, counters, card):
+    """Phase 8b: the serving stack on the full-width bf16 Interface. The
+    continuous-batching engine (`VampEngine`, max_batch 8, max_wait 5 ms,
+    pipeline_depth 2) serves 16 requests on one encoded 10 s signal, each
+    with its own mask (`build_mask(periodic_prompt=7, upper_codebook_mask=3,
+    seed=k)`), seed k = 1-16, temperature 0.8 / 1.0 / 1.2 in turn, top-p off
+    for the first 8 and 0.9 for the rest (two static groups), 12 steps;
+    first one at a time (twice: the same tokens bit for bit), then all 16 at
+    once. Each request's batched tokens are held to its solo ones, and its
+    solo ones to a direct `coarse_vamp(seed=[s])` + `coarse_to_fine(seed=
+    [s + 0x9E3779B9])`, within SOLO_BATCHED_BOUND. One 8-request group is
+    profiled (K1 and K10 launches, busy time, peak memory), and the card's
+    idle share is measured over the 16 at pipeline_depth 1 and 2. Then the
+    stdlib web app on the same engine answers /health, /presets and
+    HTTP_CLIENTS concurrent clients, each POSTing the 10 s WAV for two
+    variations, and one ?format=wav request. Returns the phase's summary
+    and K1's and K10's launches per engine group."""
+    import http.client
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from urllib.parse import quote
+
+    import numpy as np
+    import torch
+
+    from vampnet_tpu_torch.serve import VampEngine, VampRequest, make_server
+    from vampnet_tpu_torch.serve.webapp import audio_to_wav_bytes, wav_bytes_to_audio
+
+    t_phase = time.perf_counter()
+    iface.set_chunk_size(10)
+    codes = iface.encode(sig)
+    codes_np = codes.cpu().numpy()
+    t_tokens = codes_np.shape[-1]
+    audio_s = t_tokens * iface.codec_config.hop_length / iface.codec_config.sample_rate
+    reqs = []
+    for k in range(1, ENGINE_REQUESTS + 1):
+        mask = iface.build_mask(codes, periodic_prompt=7, upper_codebook_mask=3, seed=k)
+        reqs.append(VampRequest(codes=codes_np, mask=mask.cpu().numpy(), seed=k,
+                                temperature=(0.8, 1.0, 1.2)[(k - 1) % 3],
+                                top_p=None if k <= ENGINE_REQUESTS // 2 else 0.9,
+                                sampling_steps=12))
+    attn, samp = counters["attention_fwd"], counters["sampler"]
+    per_group = 12 * iface.coarse.config.n_layers + 2 * iface.c2f.config.n_layers  # 272
+    eng = VampEngine(iface, max_batch=8, max_wait_ms=5, pipeline_depth=2)
+    result = dict(card=card, requests=ENGINE_REQUESTS, audio_s_per_request=audio_s)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup((1, 2, 4, 8), sampling_steps=12)
+        result["warmup_s"] = time.perf_counter() - t0
+
+        # ---- concurrency 1: one request at a time, twice ----
+        solo, solo_lat = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            t_req = time.perf_counter()
+            solo.append(eng.vamp(r, timeout=600))
+            solo_lat.append(time.perf_counter() - t_req)
+        wall_seq = time.perf_counter() - t0
+        again = [eng.vamp(r, timeout=600) for r in reqs]
+        for k, (a, b) in enumerate(zip(solo, again), 1):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"request {k} served alone twice differs in "
+                                     f"{token_share(a, b)} of its tokens")
+            if a.shape != codes_np.shape or (a == iface.coarse.mask_token).any():
+                raise AssertionError(f"request {k}: tokens {a.shape} with MASK left")
+
+        # ---- concurrency 16: all at once; the kernels' counts over the run ----
+        before = dict(eng.stats)
+        attn.launches = samp.launches = 0
+        batched, wall16, lat16 = engine_run(eng, reqs)
+        launches = {"attention_fwd": attn.launches, "sampler": samp.launches}
+        groups = eng.stats["batches"] - before["batches"]
+        shared = eng.stats["batched_requests"] - before["batched_requests"]
+        print(f"engine: 16 at once in {groups} groups, {shared} requests shared a group, "
+              f"launches {launches}")
+        if shared < 2 or groups >= ENGINE_REQUESTS:
+            raise AssertionError(f"the engine did not batch: {groups} groups, {shared} shared")
+        if launches != {"attention_fwd": per_group * groups, "sampler": 14 * groups}:
+            raise AssertionError(f"launches {launches} for {groups} groups, want "
+                                 f"{per_group} and 14 a group")
+        shares = [token_share(b, a) for a, b in zip(solo, batched)]
+        print("engine: batched vs solo token share per request: " + json.dumps(shares))
+        if max(shares) > SOLO_BATCHED_BOUND:
+            raise AssertionError(f"batched tokens differ from solo in up to {max(shares)}, "
+                                 f"bound {SOLO_BATCHED_BOUND}")
+
+        # ---- each request as direct per-row-seed staged calls ----
+        direct_shares = []
+        for r, a in zip(reqs, solo):
+            def knob(v):
+                return torch.tensor([v], dtype=torch.float32, device=iface.device)
+
+            kn = dict(temperature=knob(r.temperature), mask_temperature=knob(r.mask_temperature),
+                      top_p=None if r.top_p is None else knob(r.top_p),
+                      sample_cutoff=knob(r.sample_cutoff))
+            z = iface.coarse_vamp(r.codes, r.mask, seed=[r.seed], _sampling_steps=12, **kn)
+            z = iface.coarse_to_fine(z, mask=r.mask, seed=[(r.seed + 0x9E3779B9) % 2 ** 32],
+                                     **kn)
+            direct_shares.append(token_share(z.cpu().numpy(), a))
+        print("engine: solo vs direct staged calls token share per request: "
+              + json.dumps(direct_shares))
+        if max(direct_shares) > SOLO_BATCHED_BOUND:
+            raise AssertionError(f"engine tokens differ from the direct calls in up to "
+                                 f"{max(direct_shares)}")
+
+        # ---- one 8-request group: launches, busy time, peak memory ----
+        group8 = reqs[:8]
+        hits = {}
+        torch.cuda.reset_peak_memory_stats()
+        busy8, n8 = profile("engine group of 8", lambda: engine_run(eng, group8),
+                            totals=("attention_fwd_kernel", "sampler_kernel", "nvjet"),
+                            hits=hits)
+        peak8 = torch.cuda.max_memory_allocated() / 2 ** 30
+        group_launches = {"attention_fwd": hits["attention_fwd_kernel"][1],
+                          "sampler": hits["sampler_kernel"][1]}
+        if group_launches != {"attention_fwd": per_group, "sampler": 14}:
+            raise AssertionError(f"one 8-request group launched {group_launches}, want "
+                                 f"{per_group} and 14")
+
+        # ---- the card's idle share over the 16 at pipeline_depth 1 and 2 ----
+        idle = {}
+        for depth in (1, 2):
+            e = eng if depth == 2 else VampEngine(iface, max_batch=8, max_wait_ms=5,
+                                                  pipeline_depth=1)
+            try:
+                _, wall, _ = engine_run(e, reqs)  # the profiler slows the host: wall without it
+                busy, _ = profile(f"engine 16 at pipeline_depth {depth}",
+                                  lambda: engine_run(e, reqs))
+            finally:
+                if e is not eng:
+                    e.close()
+            idle[f"depth{depth}"] = dict(wall_s=wall, busy_ms=busy,
+                                         idle_share=1 - busy / (wall * 1e3))
+        lat_sorted = sorted(lat16)
+        result.update(
+            sequential=dict(wall_s=wall_seq, requests_per_s=ENGINE_REQUESTS / wall_seq,
+                            audio_s_per_s=ENGINE_REQUESTS * audio_s / wall_seq,
+                            p50_latency_s=float(np.percentile(solo_lat, 50)),
+                            p90_latency_s=float(np.percentile(solo_lat, 90))),
+            concurrent=dict(wall_s=wall16, requests_per_s=ENGINE_REQUESTS / wall16,
+                            audio_s_per_s=ENGINE_REQUESTS * audio_s / wall16,
+                            p50_latency_s=float(np.percentile(lat_sorted, 50)),
+                            p90_latency_s=float(np.percentile(lat_sorted, 90)),
+                            groups=groups, launches=launches),
+            group8=dict(busy_ms=busy8, kernel_launches=n8, peak_gib=peak8,
+                        launches=group_launches,
+                        k1_ms=hits["attention_fwd_kernel"][0],
+                        k10_ms=hits["sampler_kernel"][0], gemm_ms=hits["nvjet"][0]),
+            idle=idle, solo_batched_share_max=max(shares),
+            solo_batched_share_mean=float(np.mean(shares)),
+            solo_direct_share_max=max(direct_shares))
+
+        # ---- the stdlib web app on the same engine ----
+        # the registry lists fine-tunes through huggingface_hub where it can
+        # import it: it must not try, here
+        sys.modules["huggingface_hub"] = None
+        server = make_server(iface, host="127.0.0.1", port=0, engine=eng)
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        try:
+            def request(method, path, body=None, ctype=None):
+                conn = http.client.HTTPConnection(*server.server_address, timeout=600)
+                try:
+                    conn.request(method, path, body=body,
+                                 headers={"Content-Type": ctype} if ctype else {})
+                    resp = conn.getresponse()
+                    return resp.status, resp.getheader("Content-Type"), resp.read()
+                finally:
+                    conn.close()
+
+            status, _, data = request("GET", "/health")
+            if status != 200 or json.loads(data)["status"] != "ok":
+                raise AssertionError(f"/health: {status} {data[:200]}")
+            status, _, data = request("GET", "/presets")
+            if status != 200 or "medium variation" not in json.loads(data):
+                raise AssertionError(f"/presets: {status} {data[:200]}")
+            sr = sig.sample_rate
+            wav = audio_to_wav_bytes(sr, sig.samples[0, 0])
+            n_out = t_tokens * iface.codec_config.hop_length
+
+            def check_wav(raw, label):
+                out_sr, x = wav_bytes_to_audio(raw)
+                if out_sr != sr or x.shape != (n_out,) or not np.isfinite(x).all() or \
+                        float(np.abs(x).max()) < 1e-3:
+                    raise AssertionError(f"{label}: {out_sr} Hz, {x.shape}, "
+                                         f"peak {float(np.abs(x).max())}")
+
+            def client(k):
+                t0 = time.perf_counter()
+                status, _, data = request(
+                    "POST", f"/api/vamp?preset={quote('medium variation')}&sampling_steps=12"
+                    f"&seed={k}&batch_size=2", wav, "audio/wav")
+                wall = time.perf_counter() - t0
+                if status != 200:
+                    raise AssertionError(f"client {k}: {status} {data[:500]}")
+                out = json.loads(data)
+                if out["seed"] != k or len(out["variations"]) != 2:
+                    raise AssertionError(f"client {k}: seed {out['seed']}, "
+                                         f"{len(out['variations'])} variations")
+                for v in out["variations"]:
+                    check_wav(base64.b64decode(v), f"client {k}")
+                return wall
+
+            before = dict(eng.stats)
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(HTTP_CLIENTS) as ex:
+                walls = list(ex.map(client, range(1, HTTP_CLIENTS + 1), timeout=900))
+            http_wall = time.perf_counter() - t0
+            for k, w in enumerate(walls, 1):
+                print(f"web app: client {k} wall {w * 1e3:.1f} ms")
+            t0 = time.perf_counter()
+            status, ctype, data = request(
+                "POST", f"/api/vamp?sampling_steps=12&seed=99&batch_size=1&format=wav", wav,
+                "audio/wav")
+            wav_wall = time.perf_counter() - t0
+            if status != 200 or ctype != "audio/wav":
+                raise AssertionError(f"?format=wav: {status} {ctype}")
+            check_wav(data, "?format=wav")
+            print(f"web app: ?format=wav request wall {wav_wall * 1e3:.1f} ms")
+            result["webapp"] = dict(
+                client_wall_s=walls, clients_wall_s=http_wall, format_wav_wall_s=wav_wall,
+                engine_groups=eng.stats["batches"] - before["batches"],
+                engine_requests=eng.stats["requests"] - before["requests"])
+        finally:
+            server.shutdown()
+            server.server_close()
+            th.join(timeout=60)
+    finally:
+        eng.close()
+    result["phase_s"] = time.perf_counter() - t_phase
+    print("engine phase: " + json.dumps(result))
+    return result, group_launches
+
 
 def main() -> int:
     import numpy as np
@@ -1676,6 +1957,9 @@ def main() -> int:
     profile("long request", lambda: staged_request(iface, sig20, 20, 97))
     iface.set_chunk_size(10)
 
+    # ---- 8b. the serving engine and the web app (the Interface still bf16) ----
+    engine_phase, engine_group = serve_engine_and_webapp(iface, sig, counters, card)
+
     # ---- 9. a full-width masked TransformerStack, forward and backward ----
     masked_stack, masked_launches = masked_stack_full_width(gen, t_coarse, valid)
     launches.update(masked_launches)
@@ -1740,7 +2024,8 @@ def main() -> int:
     kernels = [
         dict(entry("attention_fwd", "vampnet_tpu_torch/csrc/attention_fwd.cu",
                    "vampnet_tpu/ops/flash_attention.py:120", attn), registers=fwd_regs,
-             launches_lora=lora_launches["attention_fwd"]),
+             launches_lora=lora_launches["attention_fwd"],
+             launches_per_engine_group=engine_group["attention_fwd"]),
         dict(entry("attention_fwd_masked", "vampnet_tpu_torch/csrc/attention_fwd.cu",
                    "vampnet_tpu/ops/flash_attention.py:93", results["attention_fwd_masked"]),
              also_replaces="without a mask at 896 < t <= 1024: attention_fwd (K1) at t948",
@@ -1751,7 +2036,8 @@ def main() -> int:
              launches_path="staged requests with a 20 s coarse chunk"),
         dict(entry("sampler", "vampnet_tpu_torch/csrc/sampler.cu",
                    "vampnet_tpu/ops/sampler_kernel.py:80", samp), registers=sampler_regs,
-             launches_lora=lora_launches["sampler"]),
+             launches_lora=lora_launches["sampler"],
+             launches_per_engine_group=engine_group["sampler"]),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, replaces, also in (
@@ -1802,6 +2088,7 @@ def main() -> int:
     print("serve summary: " + json.dumps({"bf16": served, "fused_ffn": served_fused,
                                           "int8": served_int8, "long_20s": served_long,
                                           "chunk_11s": served_11}))
+    print("engine summary: " + json.dumps(engine_phase))
     print("masked stack summary: " + json.dumps(masked_stack))
     print("train summary: " + json.dumps(train))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")

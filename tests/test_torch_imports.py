@@ -1,8 +1,9 @@
 """The port imports nothing that the machine with the card lacks: no JAX, no
 part of the JAX package, none of its serialisation or audio-file modules,
-and no `triton` at import time. Also: entry points default to the card and
-refuse to run quietly on the CPU, and `chip_smoke.py` gives no result
-without a card or without the package beside it."""
+no `triton`, and none of the serving stack's optional front ends (Gradio,
+sounddevice, blessed, matplotlib) at import time. Also: entry points default
+to the card and refuse to run quietly on the CPU, and `chip_smoke.py` gives
+no result without a card or without the package beside it."""
 import shutil
 import subprocess
 import sys
@@ -13,7 +14,9 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "vampnet_tpu",
-           "msgpack", "yaml", "soundfile", "triton", "huggingface_hub")
+           "msgpack", "yaml", "soundfile", "triton", "huggingface_hub",
+           # the serving stack's optional front ends, imported where used
+           "gradio", "gradio_client", "sounddevice", "blessed", "matplotlib")
 
 _IMPORT_ALL = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -37,7 +40,7 @@ for name in names:
 import chip_smoke
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -45,7 +48,11 @@ def test_port_and_chip_smoke_import_without_jax_or_missing_packages():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was walked
+    names = out.stdout.strip().splitlines()[-1].split()
+    assert len(names) >= 41  # every module was walked
+    serve = {"vampnet_tpu_torch.serve." + m
+             for m in ("app", "engine", "osc", "token_telephone", "unloop", "webapp")}
+    assert serve <= set(names), sorted(serve - set(names))
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):

@@ -2,7 +2,10 @@
 checks run on `meta` tensors, which carry shapes and dtypes but no data, so
 they need no card: the fused FFN's argument check (any d a multiple of 128,
 as the JAX wrapper asks), and the sampler's per-row parameters (a Python
-number is filled on the device, not copied from the host)."""
+number is filled on the device, not copied from the host). Also the kernel
+library's first build under concurrent first calls."""
+import ctypes
+
 import pytest
 import torch
 
@@ -51,3 +54,52 @@ def test_sampler_keeps_tensor_row_params():
     scalar = torch.tensor(0.9)
     assert torch.equal(sampler_kernel._row_param(scalar, 2, torch.device("cpu")),
                        torch.full((2,), 0.9))
+
+
+def test_concurrent_first_calls_build_the_library_once(monkeypatch, tmp_path):
+    """Eight threads that call `library()` first at the same time build it
+    once (the serving engine's threads and the web app's handlers all reach
+    it). `build()` is replaced by a slow stand-in that counts its calls and
+    returns a loadable library, the C runtime's."""
+    import ctypes.util
+    import sys
+    import threading
+    import time
+
+    from vampnet_tpu_torch.ops import build
+
+    libc = ctypes.util.find_library("c")
+    if libc is None:
+        pytest.fail("no C runtime library to stand in for the kernels")
+    calls = []
+
+    def slow_build():
+        calls.append(threading.get_ident())
+        time.sleep(0.2)
+        return libc
+
+    monkeypatch.setattr(build, "build", slow_build)
+    monkeypatch.setattr(build, "_SIGNATURES", {"abs": (ctypes.c_int,)})
+    build._load_library.cache_clear()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        barrier = threading.Barrier(8)
+        libs = []
+
+        def first_call():
+            barrier.wait(timeout=30)
+            libs.append(build.library())
+
+        threads = [threading.Thread(target=first_call) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+        build._load_library.cache_clear()
+    assert len(calls) == 1 and len(libs) == 8
+    assert all(lib is libs[0] for lib in libs)
+    assert libs[0].abs(-3) == 3

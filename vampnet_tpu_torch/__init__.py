@@ -11,7 +11,8 @@ tensors every kernel wrapper takes its plain PyTorch version; on CUDA tensors
 it launches the kernel or raises.
 
 Layer map (mirrors `vampnet_tpu`):
-  audio/     host-side signal substrate (resample, loudness, padding)
+  audio/     host-side signal substrate (WAV files, resample, loudness,
+             padding, pitch shift)
   codec/     LAC codec: weight-norm conv encoder/decoder + RVQ
   mask.py    token mask algebra
   modules/   the masked-token transformer LM
@@ -24,6 +25,10 @@ Layer map (mirrors `vampnet_tpu`):
              checkpoints -> flax-shaped trees
   checkpoints  `.vtpu` files (shared with the JAX package) and `.pth` loads
   registry   the local models directory and the LoRA fine-tunes in it
+  serve/     the continuous-batching engine, the stdlib web app, the app's
+             `vamp_core` (and its Gradio UI), the unloop OSC bridge and the
+             token telephone
+  profiling  wall-clock stage timers and `torch.profiler` traces
 """
 __version__ = "0.1.0"
 

@@ -1,1 +1,1 @@
-from .signal import AudioSignal  # noqa: F401
+from .signal import AudioSignal, signal_concat  # noqa: F401

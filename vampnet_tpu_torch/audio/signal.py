@@ -1,14 +1,16 @@
 """Host-side audio signal (counterpart of `vampnet_tpu/audio/signal.py`).
 
-The subset of `AudioSignal` that the serving path's preprocessing uses:
-resample, to_mono, ITU-R BS.1770 loudness and normalize, ensure_max_of_audio
-and zero_pad. numpy/scipy only; samples are float32 (batch, channels, time).
-The port keeps its own copy so that it imports nothing of the JAX package.
+What the serving paths use: WAV read and write (`scipy.io.wavfile`),
+resample, to_mono, ITU-R BS.1770 loudness and normalize, ensure_max_of_audio,
+zero_pad, trim, excerpt and `signal_concat`. numpy/scipy only; samples are
+float32 (batch, channels, time). The port keeps its own copy so that it
+imports nothing of the JAX package.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from pathlib import Path
+from typing import Optional, Union
 
 import numpy as np
 import scipy.signal
@@ -87,9 +89,15 @@ def _loudness_lufs(samples: np.ndarray, sr: int) -> np.ndarray:
 
 
 class AudioSignal:
-    """float32 (batch, channels, time) audio + sample rate."""
+    """float32 (batch, channels, time) audio + sample rate. `samples` may be
+    the path of a WAV file, which then gives the sample rate too."""
 
-    def __init__(self, samples, sample_rate: int):
+    def __init__(self, samples: Union[np.ndarray, str, Path],
+                 sample_rate: Optional[int] = None):
+        if isinstance(samples, (str, Path)):
+            samples, sample_rate = self._read(samples)
+        if sample_rate is None:
+            raise ValueError("sample_rate required")
         samples = np.asarray(samples, dtype=np.float32)
         if samples.ndim == 1:
             samples = samples[None, None, :]
@@ -101,9 +109,55 @@ class AudioSignal:
         self.sample_rate = int(sample_rate)
         self._loudness: Optional[np.ndarray] = None
 
+    @staticmethod
+    def _read(path):
+        """A WAV file -> ((1, channels, time) float32, sample rate); integer
+        PCM is scaled to [-1, 1)."""
+        import scipy.io.wavfile as wavfile
+
+        sr, data = wavfile.read(str(path))
+        if data.dtype == np.int16:
+            data = data.astype(np.float32) / 32768.0
+        elif data.dtype == np.int32:
+            data = data.astype(np.float32) / 2147483648.0
+        elif data.dtype == np.uint8:
+            data = (data.astype(np.float32) - 128.0) / 128.0
+        else:
+            data = data.astype(np.float32)
+        data = data[None, :] if data.ndim == 1 else data.T  # (channels, time)
+        return data[None], sr
+
+    def write(self, path) -> "AudioSignal":
+        """The first batch item as 16-bit PCM WAV, clipped to [-1, 1]."""
+        import scipy.io.wavfile as wavfile
+
+        data = np.clip(self.samples[0], -1.0, 1.0)
+        wavfile.write(str(path), self.sample_rate, (data.T * 32767.0).astype(np.int16))
+        return self
+
+    @property
+    def batch_size(self) -> int:
+        return self.samples.shape[0]
+
+    @property
+    def num_channels(self) -> int:
+        return self.samples.shape[1]
+
     @property
     def length(self) -> int:
         return self.samples.shape[-1]
+
+    @property
+    def signal_length(self) -> int:
+        return self.samples.shape[-1]
+
+    @property
+    def duration(self) -> float:
+        return self.length / self.sample_rate
+
+    @property
+    def audio_data(self) -> np.ndarray:
+        return self.samples
 
     def clone(self) -> "AudioSignal":
         out = AudioSignal(self.samples.copy(), self.sample_rate)
@@ -148,3 +202,19 @@ class AudioSignal:
         self.samples = np.pad(self.samples, ((0, 0), (0, 0), (before, after)))
         self._loudness = None
         return self
+
+    def trim(self, before: int, after: int) -> "AudioSignal":
+        self.samples = self.samples[:, :, before:self.length - after]
+        self._loudness = None
+        return self
+
+    def excerpt(self, offset_s: float, duration_s: float) -> "AudioSignal":
+        lo = int(offset_s * self.sample_rate)
+        hi = lo + int(duration_s * self.sample_rate)
+        return AudioSignal(self.samples[:, :, lo:hi].copy(), self.sample_rate)
+
+
+def signal_concat(audio_signals) -> AudioSignal:
+    """Concatenate signals along time."""
+    data = np.concatenate([s.audio_data for s in audio_signals], axis=-1)
+    return AudioSignal(data, audio_signals[0].sample_rate)

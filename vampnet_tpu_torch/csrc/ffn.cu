@@ -397,6 +397,10 @@ int launch_gemm(const void* a, const void* w, const __nv_bfloat16* x, __nv_bfloa
   if (!bf16_map(&ta, a, m, k, BM) || !bf16_map(&tw, w, UP ? 4 * d : d, k, BN)) {
     return (int)cudaErrorInvalidValue;
   }
+  // Host threads may launch concurrently (the serving engine's dispatcher
+  // beside the web app's handlers). The flag only skips a repeat of the
+  // call below, which sets one constant attribute and is idempotent, so
+  // threads that race past an unset flag each set the same value.
   static bool smem_set[64] = {};  // per device
   if (device >= 64 || !smem_set[device]) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -473,6 +473,10 @@ int launch_gemm(const void* xq, const float* a_scale, const void* w_q, const flo
   if (!s8_map(&tx, xq, m, k, BM) || !s8_map(&tw, w_q, n, k, BN)) {
     return (int)cudaErrorInvalidValue;
   }
+  // Host threads may launch concurrently (the serving engine's dispatcher
+  // beside the web app's handlers). The flag only skips a repeat of the
+  // call below, which sets one constant attribute and is idempotent, so
+  // threads that race past an unset flag each set the same value.
   static bool smem_set[64] = {};  // per device
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);

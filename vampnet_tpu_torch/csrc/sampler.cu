@@ -475,6 +475,10 @@ extern "C" int vampnet_sampler(const void* logits, const void* keys, const void*
   if (vocab != V || b <= 0 || flat <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  // Host threads may launch concurrently (the serving engine's dispatcher
+  // beside the web app's handlers). The flag only skips a repeat of the
+  // call below, which sets one constant attribute and is idempotent, so
+  // threads that race past an unset flag each set the same value.
   static bool carveout_set[64] = {};  // per device
   if (device >= 64 || !carveout_set[device]) {
     // as much of the SM's memory as shared memory as the blocks need

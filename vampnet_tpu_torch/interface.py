@@ -19,9 +19,15 @@ the Interface lives on the card. The coarse chunk length is whatever
 Randomness comes from `torch.Generator`s: one per request in `vamp_e2e`;
 in the staged API one per stage, seeded as the JAX package seeds its keys
 (`build_mask` from its seed, each `coarse_vamp` and `coarse_to_fine` of a
-`vamp` from sub-seeds that `np.random.default_rng(seed)` draws). The port
-does not reproduce `jax.random`'s bits, so the JAX package and the port
-agree token for token only where no random draw decides anything.
+`vamp` from sub-seeds that `np.random.default_rng(seed)` draws). A seed
+array of length b given to `coarse_vamp` or `coarse_to_fine` gives per-row
+keys instead, as the JAX package's does: seed s is the key (0, s mod 2^32),
+chunk row c * b + j takes `fold_in_rows(keys[j], offset + c)` where a
+request spans several chunk rows, and each row then draws from its own
+streams (`sampling/sample.py`), so a request's tokens depend only on its own
+seed. The serving engine (`serve/engine.py`) relies on that. The port does
+not reproduce `jax.random`'s bits, so the JAX package and the port agree
+token for token only where no random draw decides anything.
 """
 from __future__ import annotations
 
@@ -44,7 +50,8 @@ from .modules import LMConfig, VampNetLM
 from .modules.quantize import quantize_lm_state_dict
 from .modules.transformer import position_bias_from_params
 from .sampling.generate import generate
-from .util import resolve_device
+from .sampling.sample import fold_in_rows
+from .util import resolve_device, to_device
 
 
 def _load(module: nn.Module, state: Mapping, device: torch.device,
@@ -76,6 +83,21 @@ _C2F_KWARGS = ("temperature", "mask_temperature", "typical_mass", "typical_min_t
                "sample_cutoff")
 
 
+def _keys_from_seeds(seeds, device) -> torch.Tensor:
+    """Seeds (b,) -> per-row keys (b, 2) int64: seed s is (0, s mod 2^32),
+    the words of `jax.random.PRNGKey(s)`."""
+    s = np.asarray(seeds, dtype=np.int64).reshape(-1) & 0xFFFFFFFF
+    return to_device(np.stack([np.zeros_like(s), s], axis=1), device)
+
+
+def _expand_row_keys(keys: torch.Tensor, n_rep: int, offset: int = 0) -> torch.Tensor:
+    """(b, 2) per-request keys -> (n_rep * b, 2) per-chunk-row keys, row
+    c * b + j = fold_in_rows(keys[j], offset + c). `offset` is the global
+    index of the first chunk, so a request streamed group by group draws
+    what the ungrouped run draws."""
+    return torch.cat([fold_in_rows(keys, offset + c) for c in range(n_rep)], dim=0)
+
+
 class Interface:
     """The codec and the two LMs on one device. Each LM carries its chunk
     length in seconds as `chunk_size_s`, where the JAX package's `_LoadedLM`
@@ -94,6 +116,10 @@ class Interface:
         self.device = next(codec.parameters()).device
         self.loudness = -24.0
         self.codebooks = codec.codebook_tables()  # (n_cb, vocab, codebook_dim)
+        # beat tracking (wavebeat) is not ported: the apps' "follow beat"
+        # presets then skip the beat mask, as the JAX package does without a
+        # wavebeat checkpoint
+        self.beat_tracker = None
         # the files the models came from (`from_checkpoints`, `reload`)
         self.codec_path: Optional[Path] = None
         self.coarse_path: Optional[Path] = None
@@ -304,10 +330,18 @@ class Interface:
         """A generator on the device, seeded by `seed` (None: a random seed)."""
         if seed is not None and np.ndim(seed) > 0:
             raise NotImplementedError(
-                "per-row seeds are not ported (ROADMAP Queue A item 4, per-row keys)")
+                "per-row seeds reach coarse_vamp and coarse_to_fine only; masks and "
+                "vamp_e2e take one seed")
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed) if seed is not None else int(np.random.randint(0, 2**31 - 1)))
         return gen
+
+    def _rng(self, seed):
+        """A generation stage's randomness: per-row keys (b, 2) for a seed
+        array, else a generator (`_generator`)."""
+        if seed is not None and np.ndim(seed) > 0:
+            return _keys_from_seeds(seed, self.device)
+        return self._generator(seed)
 
     def _mask_pipeline(self, z, gen, rand_mask_intensity, n_prefix, n_suffix,
                        periodic_prompt, periodic_prompt_width, _dropout,
@@ -398,7 +432,7 @@ class Interface:
         lm: VampNetLM,
         start_tokens: torch.Tensor,
         mask: torch.Tensor,
-        generator: torch.Generator,
+        rng,
         _sampling_steps: int = 12,
         temperature=1.0,
         mask_temperature=10.5,
@@ -410,10 +444,15 @@ class Interface:
         sample_cutoff=1.0,
         cfg_guidance: Optional[float] = None,
         sampler_impl: str = "auto",
+        row_key_offset: Optional[int] = None,
     ) -> torch.Tensor:
         """MaskGIT over chunk rows with `lm`, the T5 bias built once for the
-        chunk length. Per-request (b,) parameters are tiled over the chunk
-        rows, as in the JAX package."""
+        chunk length. `rng` is a generator or per-request keys (b, 2).
+        Per-request (b,) parameters and keys are tiled over the chunk rows, as
+        in the JAX package: keys are folded with the global chunk index
+        (`_expand_row_keys`, chunk 0 at `row_key_offset`) where a request has
+        several chunk rows or an offset is given, and used as they are
+        otherwise."""
         if top_k is not None:
             raise NotImplementedError("top_k sampling is not ported: ROADMAP Queue A item 4")
         if cfg_guidance is not None:
@@ -436,6 +475,15 @@ class Interface:
                 v = v.repeat(b_total // v.shape[0])
             return v
 
+        generator, row_keys = rng, None
+        if isinstance(rng, torch.Tensor):
+            generator, row_keys = None, rng
+            if row_keys.shape[0] != b_total or row_key_offset is not None:
+                if b_total % row_keys.shape[0]:
+                    raise ValueError(f"per-row keys of size {row_keys.shape[0]} do not "
+                                     f"divide batch {b_total}")
+                row_keys = _expand_row_keys(row_keys, b_total // row_keys.shape[0],
+                                            int(row_key_offset or 0))
         bias = position_bias_from_params(lm, chunk_len)
         cbs = self.codebooks[:n_cb]
         return generate(
@@ -446,18 +494,20 @@ class Interface:
             mask_temperature=expand(mask_temperature),
             typical_filtering=bool(typical_filtering), typical_mass=float(typical_mass),
             typical_min_tokens=int(typical_min_tokens), top_p=expand(top_p),
-            sample_cutoff=expand(sample_cutoff),
+            sample_cutoff=expand(sample_cutoff), row_keys=row_keys,
         )
 
     @torch.inference_mode()
     def coarse_vamp(self, z, mask, return_mask: bool = False,
-                    gen_fn: Optional[Callable] = None, seed: Optional[int] = None,
+                    gen_fn: Optional[Callable] = None, seed=None,
                     chunked: Optional[bool] = None, **kwargs):
         """Vamp the coarse codebooks in chunks of `coarse.chunk_size_s`, the
         chunks as batch rows, with chunk-edge pinning. Returns the codes with
         the fine codebooks re-appended from z (and, with `return_mask`, the
-        masked coarse codes). `gen_fn(start_tokens=, mask=, generator=,
-        **kwargs)` replaces the MaskGIT call. The chunk-free path
+        masked coarse codes). `seed` is an int (one generator) or an array of
+        b seeds (per-row keys). `gen_fn(start_tokens=, mask=, generator=,
+        **kwargs)` replaces the MaskGIT call; with a seed array it gets
+        `row_keys=` in place of `generator=`. The chunk-free path
         (`chunked=False`) needs the sp mesh, which is not ported."""
         if chunked is False:
             raise NotImplementedError(
@@ -470,11 +520,12 @@ class Interface:
         (pre, post), _ = self._chunk_fns(n_coarse, b, t, self.s2t(lm.chunk_size_s),
                                          lm.mask_token, pin_edges=True)
         cz_masked, m_chunks = pre(z[:, :n_coarse], mask[:, :n_coarse])
-        gen = self._generator(seed)
+        rng = self._rng(seed)
         if gen_fn is not None:
-            chunks = gen_fn(start_tokens=cz_masked, mask=m_chunks, generator=gen, **kwargs)
+            which = "row_keys" if isinstance(rng, torch.Tensor) else "generator"
+            chunks = gen_fn(start_tokens=cz_masked, mask=m_chunks, **{which: rng}, **kwargs)
         else:
-            chunks = self._run_generate(lm, cz_masked, m_chunks, gen, **kwargs)
+            chunks = self._run_generate(lm, cz_masked, m_chunks, rng, **kwargs)
         c_vamp = post(chunks)
         if z.shape[1] > n_coarse:
             c_vamp = torch.cat([c_vamp, z[:, n_coarse:]], dim=1)
@@ -483,11 +534,11 @@ class Interface:
         return c_vamp
 
     @torch.inference_mode()
-    def coarse_to_fine(self, z, mask=None, return_mask: bool = False,
-                       seed: Optional[int] = None, **kwargs):
+    def coarse_to_fine(self, z, mask=None, return_mask: bool = False, seed=None, **kwargs):
         """Fill the fine codebooks in chunks of `c2f.chunk_size_s`, batched;
         the conditioning codebooks are kept. 2 steps with the typical filter
-        unless given."""
+        unless given. `seed` is an int or an array of b seeds, as in
+        `coarse_vamp`."""
         if self.c2f is None:
             raise ValueError("no coarse-to-fine model loaded")
         z = self._tensor(z)
@@ -504,8 +555,7 @@ class Interface:
         z_masked, m_chunks = pre(z, mask)
         kwargs.setdefault("_sampling_steps", 2)
         kwargs.setdefault("typical_filtering", True)
-        fine_z = post(self._run_generate(lm, z_masked, m_chunks, self._generator(seed),
-                                         **kwargs))
+        fine_z = post(self._run_generate(lm, z_masked, m_chunks, self._rng(seed), **kwargs))
         if return_mask:
             return fine_z, torch.where(mask.bool(), lm.mask_token, fine_z)
         return fine_z
@@ -524,7 +574,8 @@ class Interface:
     ):
         """The two-stage vamp of the JAX package: batch expansion, time
         stretch, `feedback_steps` coarse vamps, then coarse-to-fine. Each stage
-        draws from a generator seeded by `np.random.default_rng(seed)`.
+        draws from a generator seeded by `np.random.default_rng(seed)` (an
+        int or, as in the JAX package, an array of seeds as its entropy).
         Returns the codes (b, n_codebooks, T) and, with `return_mask`, the
         masked codes as a numpy array."""
         z, mask = self._tensor(codes), self._tensor(mask)

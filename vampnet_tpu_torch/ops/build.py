@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -146,9 +147,19 @@ def build_logs() -> str:
     )
 
 
-@functools.lru_cache(maxsize=None)
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+    """The loaded kernel library, built at first use. Threads that call it
+    first at the same time build it once: the lock keeps a second `nvcc`
+    off the same output files."""
+    with _LIBRARY_LOCK:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

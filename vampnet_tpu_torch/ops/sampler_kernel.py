@@ -44,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from ..sampling.sample import gumbel_from_uniform, sample_from_logits
+from ..sampling.sample import gumbel_from_uniform, sample_from_logits, uniform_from_bits
 
 VOCAB = 1024
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -91,8 +91,7 @@ def philox_uniform(row_keys: torch.Tensor, step: int, flat: int,
     c3 = torch.zeros((1, 1, 1), dtype=torch.int64, device=dev)
     c0, c1, c2, c3 = (x.expand(b, flat, vocab // 4) for x in (c0, c1, c2, c3))
     words = torch.stack(philox4x32_10(c0, c1, c2, c3, k0, k1), dim=-1)
-    bits = words.reshape(b, flat, vocab)
-    return ((bits >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
+    return uniform_from_bits(words.reshape(b, flat, vocab))
 
 
 def fused_sample_plain(row_keys, step, logits, temperature, do_sample, top_p=None,

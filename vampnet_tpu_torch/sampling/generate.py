@@ -11,6 +11,13 @@ It runs eagerly as a Python loop. Each step samples through
 `ops.sampler_kernel.fused_sample_from_logits` (the CUDA kernel on the card,
 its plain version on CPU tensors). The ctrls CFG and `cfg_guidance` paths of
 the JAX function are not ported yet.
+
+Randomness comes from one of two places. A `torch.Generator` draws the
+sampler's row keys and the re-masking noise for the whole batch. Per-row
+keys (`row_keys`, (b, 2) int64), the JAX function's batched `key`, give each
+row its own streams (`sample.py`): the sampler kernel takes the keys as they
+are and the re-masking noise comes from `remask_noise`, so a row's tokens
+depend only on its key and its own logits, never on its batch-mates.
 """
 from __future__ import annotations
 
@@ -32,9 +39,9 @@ def _row_tensor(x, b: int, device) -> torch.Tensor:
 def generate(
     forward_fn: Callable[[torch.Tensor], torch.Tensor],
     start_tokens: torch.Tensor,  # (b, n_codebooks, t) int
-    mask: Optional[torch.Tensor],  # (b, n_codebooks, t); 1 = regenerate
+    mask: Optional[torch.Tensor],  # (b, n_codebooks, t) or (b, t); 1 = regenerate
     mask_token: int,
-    generator: torch.Generator,
+    generator: Optional[torch.Generator] = None,
     n_conditioning_codebooks: int = 0,
     sampling_steps: int = 12,
     temperature=1.0,
@@ -44,6 +51,7 @@ def generate(
     typical_min_tokens: int = 64,
     top_p=None,
     sample_cutoff=1.0,
+    row_keys: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run the MaskGIT loop; returns sampled codes (b, n_codebooks, t).
 
@@ -51,7 +59,9 @@ def generate(
     (b, T, C - n_conditioning_codebooks, V). `temperature`,
     `mask_temperature`, `top_p` and `sample_cutoff` are scalars or per-row
     (b,) tensors. `generator` lives on the tokens' device and feeds the
-    sampler's per-row Philox keys and the re-masking noise."""
+    sampler's per-row Philox keys and the re-masking noise; with `row_keys`
+    ((b, 2) int64 on the tokens' device) it is not used. A (b, t) mask
+    applies to every codebook."""
     z = start_tokens.to(torch.int64)
     dev = z.device
     b, n_cb, t = z.shape
@@ -61,6 +71,8 @@ def generate(
     if mask is None:
         mask = torch.ones_like(z)
         mask[:, :ncc, :] = 0
+    if mask.dim() == 2:
+        mask = mask[:, None, :].expand(z.shape)
     mask = mask.to(torch.int64)
     z_masked = torch.where(mask.bool(), mask_token, z)
     # N0 per row, as the JAX package counts it (chunks are batch rows)
@@ -72,8 +84,17 @@ def generate(
     if top_p is not None:
         top_p = _row_tensor(top_p, b, dev)
     steps = int(sampling_steps)
-    row_keys = torch.randint(0, 2 ** 32, (b, 2), generator=generator,
-                             device=dev, dtype=torch.int64)
+    per_row = row_keys is not None
+    if per_row:
+        if tuple(row_keys.shape) != (b, 2) or row_keys.dtype != torch.int64:
+            raise ValueError(f"row_keys must be int64 ({b}, 2), got {row_keys.dtype} "
+                             f"{tuple(row_keys.shape)}")
+        row_keys = row_keys.to(dev)
+    elif generator is None:
+        raise ValueError("generate needs a generator or per-row keys")
+    else:
+        row_keys = torch.randint(0, 2 ** 32, (b, 2), generator=generator,
+                                 device=dev, dtype=torch.int64)
 
     sampled = codebook_flatten(z_masked[:, ncc:, :])
     for i in range(steps):
@@ -99,7 +120,8 @@ def generate(
             num_to_mask = torch.clamp(torch.minimum(remaining - 1, num_to_mask), min=1)
 
         new_mask = mask_by_random_topk(
-            num_to_mask, selected_probs, mask_temp * (1 - r), generator
+            num_to_mask, selected_probs, mask_temp * (1 - r), generator,
+            row_keys=row_keys if per_row else None, step=i,
         )
         z_masked = torch.cat(
             [z[:, :ncc, :],

@@ -4,8 +4,22 @@ Gumbel-confidence re-masking (counterpart of
 
 The threshold filters use the JAX package's bisection form (24 halvings of
 the threshold) rather than a sort, so their kept sets are the JAX ones up to
-float ties at the cutoff. Randomness comes in as explicit noise tensors or a
-`torch.Generator`; the port does not reproduce `jax.random`'s bits.
+float ties at the cutoff. Randomness comes in as explicit noise tensors, a
+`torch.Generator`, or per-row keys; the port does not reproduce
+`jax.random`'s bits.
+
+Per-row keys are (b, 2) int64 tensors holding two 32-bit words, laid out as
+`jax.random.PRNGKey` lays them out (a seed s is the key (0, s mod 2^32)).
+The port defines their streams with Philox4x32-10, the generator of the
+sampler kernel (`ops/sampler_kernel.py`), told apart by the counter's last
+word:
+  * c3 = 0: the sampler's Gumbel noise, counter (step, position, vocab // 4, 0);
+  * c3 = 1: the re-masking noise of `mask_by_random_topk`, counter
+    (step, position, 0, 1), word 0;
+  * c3 = 2: `fold_in_rows(keys, data)`, the first two words at counter
+    (data, 0, 0, 2), the port's `jax.random.fold_in`.
+So no two of them share a counter, and a row's draws depend only on its own
+key. All of it runs as int64 tensor ops on the keys' device.
 """
 from __future__ import annotations
 
@@ -15,6 +29,9 @@ import torch
 
 NEG_INF = float("-inf")
 BISECT_ITERS = 24
+_MASK32 = 0xFFFFFFFF
+_REMASK_DOMAIN = 1  # the counter word c3 of the re-masking noise
+_FOLD_DOMAIN = 2  # the counter word c3 of fold_in_rows
 
 
 def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
@@ -28,6 +45,45 @@ def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
     u = torch.rand(shape, generator=generator, device=device)
     tiny = torch.finfo(torch.float32).tiny
     return gumbel_from_uniform(u.clamp(min=tiny, max=1.0 - 2.0 ** -24))
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit words (int64) -> fp32 uniforms ((bits >> 9) + 0.5) * 2^-23,
+    strictly inside (0, 1), as the sampler kernel forms them."""
+    return ((bits >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
+
+
+def fold_in_rows(keys: torch.Tensor, data) -> torch.Tensor:
+    """Per-row keys (b, 2) int64 -> new keys (b, 2): the first two words of
+    Philox4x32-10 under each row's key at counter (data, 0, 0, 2). `data` is
+    an int or a (b,) tensor. The port's counterpart of the JAX package's
+    `fold_in_rows` (its own stream, not threefry's)."""
+    from ..ops.sampler_kernel import philox4x32_10
+
+    dev = keys.device
+    c0 = torch.as_tensor(data, dtype=torch.int64, device=dev) & _MASK32
+    c0 = c0.expand(keys.shape[0])
+    zero = torch.zeros_like(c0)
+    w0, w1, _, _ = philox4x32_10(c0, zero, zero, torch.full_like(c0, _FOLD_DOMAIN),
+                                 keys[:, 0] & _MASK32, keys[:, 1] & _MASK32)
+    return torch.stack([w0, w1], dim=1)
+
+
+def remask_noise(row_keys: torch.Tensor, step: int, n: int) -> torch.Tensor:
+    """Gumbel(0, 1) re-masking noise (b, n) for MaskGIT step `step`: row r,
+    position p draws word 0 of Philox4x32-10 under key row_keys[r] at
+    counter (step, p, 0, 1)."""
+    from ..ops.sampler_kernel import philox4x32_10
+
+    dev = row_keys.device
+    b = row_keys.shape[0]
+    c0 = torch.full((1, 1), int(step) & _MASK32, dtype=torch.int64, device=dev).expand(b, n)
+    c1 = torch.arange(n, dtype=torch.int64, device=dev)[None, :].expand(b, n)
+    zero = torch.zeros((1, 1), dtype=torch.int64, device=dev).expand(b, n)
+    domain = torch.full((1, 1), _REMASK_DOMAIN, dtype=torch.int64, device=dev).expand(b, n)
+    w0, _, _, _ = philox4x32_10(c0, c1, zero, domain, (row_keys[:, :1] & _MASK32),
+                                (row_keys[:, 1:] & _MASK32))
+    return gumbel_from_uniform(uniform_from_bits(w0))
 
 
 def typical_filter(logits: torch.Tensor, typical_mass: float = 0.2,
@@ -122,11 +178,18 @@ def sample_from_logits(logits: torch.Tensor, noise: Optional[torch.Tensor] = Non
 
 
 def mask_by_random_topk(num_to_mask: torch.Tensor, probs: torch.Tensor,
-                        temperature, generator: torch.Generator) -> torch.Tensor:
+                        temperature, generator: Optional[torch.Generator] = None,
+                        row_keys: Optional[torch.Tensor] = None,
+                        step: int = 0) -> torch.Tensor:
     """Gumbel-confidence re-masking: confidence = log p + temperature *
     gumbel; the `num_to_mask` (b, 1) least confident positions of each row
-    come back masked. +inf probabilities pin a position unmasked."""
-    noise = gumbel_noise(probs.shape, generator, probs.device)
+    come back masked. +inf probabilities pin a position unmasked. The noise
+    comes from `generator`, or with `row_keys` from each row's own stream at
+    `step` (`remask_noise`)."""
+    if row_keys is not None:
+        noise = remask_noise(row_keys, step, probs.shape[-1])
+    else:
+        noise = gumbel_noise(probs.shape, generator, probs.device)
     temperature = torch.as_tensor(temperature, dtype=torch.float32, device=probs.device)
     if temperature.dim() == 1:
         temperature = temperature[:, None]

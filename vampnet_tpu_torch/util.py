@@ -30,6 +30,18 @@ def scalar_to_batch_array(x, batch_size: int, device=None) -> torch.Tensor:
     return torch.full((batch_size,), x, device=device)
 
 
+def to_device(array, device) -> torch.Tensor:
+    """A numpy array (or a list) as a tensor on `device`. To a card it goes
+    through pinned memory without blocking, so the host does not wait for
+    the kernels already queued on the stream, as a copy from pageable
+    memory would."""
+    x = torch.as_tensor(array)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on. CUDA is the default everywhere in
     the port; asking for it on a machine without a card raises instead of
