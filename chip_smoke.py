@@ -35,11 +35,14 @@ Phases, each of which must pass (no failure is caught):
      profile one;
  8b. serve through the continuous-batching engine and the stdlib web app
      (`serve_engine_and_webapp`, while the Interface is still bf16): 16
-     requests on one 10 s signal, one at a time twice (bit for bit) and all
-     at once (batched, K1 272 and K10 14 launches a group; each request's
+     requests on one 10 s signal; K1 and K10 held against their plain
+     versions at an 8-request group's shapes; the requests one at a time
+     twice (bit for bit) and all at once (batched, K1 272 and K10 14
+     launches a group; each request's
      batched tokens within 0.02 of its solo ones, and its solo ones within
      0.02 of direct per-row-seed staged calls); one 8-request group
-     profiled; the card's idle share at pipeline_depth 1 and 2; then 4
+     profiled, and its per-row Philox draws alone; the card's idle share at
+     pipeline_depth 1, 2, 2, 1; then 4
      concurrent web clients POSTing the 10 s WAV for two variations each,
      and one ?format=wav request; throughput, latency, busy time, peak
      memory and idle share printed beside the card;
@@ -468,6 +471,41 @@ def check_sampler(b, flat, gen, cases=False):
         bound_ms=1e3 * max(io_bytes / H100_BYTES_PER_S, ops / H100_FP32_FLOPS),
         bound_by="bytes" if io_bytes / H100_BYTES_PER_S >= ops / H100_FP32_FLOPS else "operations",
     )
+    return result
+
+
+def check_engine_shapes(iface, t_tokens, group):
+    """K1 and K10 against their plain versions (untimed) at the shapes and
+    settings one engine group of `group` requests on `t_tokens` gives them:
+    per LM, `group` x its chunks rows of one chunk, the bf16 T5 bias; the
+    sampler with the requests' typical filter, temperatures 0.8 / 1.0 / 1.2
+    by row, top-p off and at 0.9 (the phase's two static groups)."""
+    import torch
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    kw = dict(typical_filtering=True, typical_mass=0.15, typical_min_tokens=64)
+    result = {}
+    for name, lm in (("coarse", iface.coarse), ("c2f", iface.c2f)):
+        cfg = lm.config
+        chunk = iface.s2t(lm.chunk_size_s)
+        rows = group * math.ceil(t_tokens / chunk)
+        flat = chunk * cfg.n_predict_codebooks
+        att = check_attention(rows, chunk, cfg.n_heads, cfg.embedding_dim // cfg.n_heads,
+                              torch.bfloat16, gen, timed=False)
+        result[f"attention_fwd_{name}"] = dict(att, shape=f"b={rows} t={chunk} h={cfg.n_heads}")
+        logits = torch.randn((rows, flat, 1024), generator=gen, device=dev) * 3.0
+        keys = torch.randint(0, 2 ** 32, (rows, 2), generator=gen, device=dev,
+                             dtype=torch.int64)
+        temp = torch.tensor([(0.8, 1.0, 1.2)[r % 3] for r in range(rows)], device=dev)
+        top_p = torch.full((rows,), 0.9, device=dev)
+        for label, extra in (("top_p_off", kw), ("top_p_0.9", dict(kw, use_top_p=True,
+                                                                     top_p=top_p))):
+            res = sampler_agreement(f"{name} engine {label}", keys, logits, temp, **extra)
+            result[f"sampler_{name}_{label}"] = dict(
+                res, shape=f"b={rows} flat={flat}",
+                max_abs_err=max(res["greedy_max_abs_err"], res["noisy_max_abs_err"]))
     return result
 
 
@@ -1509,6 +1547,12 @@ def engine_run(engine, reqs, timeout=600):
     return outs, wall, [d - t0 for d in done]
 
 
+def nearest_rank(xs, q) -> float:
+    """The q-th percentile by nearest rank: the latency of one request."""
+    xs = sorted(xs)
+    return float(xs[max(math.ceil(q / 100 * len(xs)), 1) - 1])
+
+
 def token_share(a, b) -> float:
     """The share of tokens that differ between two outputs of one shape."""
     if a.shape != b.shape:
@@ -1524,11 +1568,14 @@ def serve_engine_and_webapp(iface, sig, counters, card):
     seed=k)`), seed k = 1-16, temperature 0.8 / 1.0 / 1.2 in turn, top-p off
     for the first 8 and 0.9 for the rest (two static groups), 12 steps;
     first one at a time (twice: the same tokens bit for bit), then all 16 at
-    once. Each request's batched tokens are held to its solo ones, and its
-    solo ones to a direct `coarse_vamp(seed=[s])` + `coarse_to_fine(seed=
-    [s + 0x9E3779B9])`, within SOLO_BATCHED_BOUND. One 8-request group is
-    profiled (K1 and K10 launches, busy time, peak memory), and the card's
-    idle share is measured over the 16 at pipeline_depth 1 and 2. Then the
+    once. K1 and K10 are first held against their plain versions at an
+    8-request group's shapes (`check_engine_shapes`). Each request's batched
+    tokens are held to its solo ones, and its solo ones to a direct
+    `coarse_vamp(seed=[s])` + `coarse_to_fine(seed=[s + 0x9E3779B9])`,
+    within SOLO_BATCHED_BOUND. One 8-request group is profiled (K1 and K10
+    launches, busy time, peak memory), and so are that group's per-row
+    Philox draws alone; the card's idle share is measured over the 16 at
+    pipeline_depth 1, 2, 2, 1. Latencies are nearest-rank percentiles. Then the
     stdlib web app on the same engine answers /health, /presets and
     HTTP_CLIENTS concurrent clients, each POSTing the 10 s WAV for two
     variations, and one ?format=wav request. Returns the phase's summary
@@ -1541,6 +1588,8 @@ def serve_engine_and_webapp(iface, sig, counters, card):
     import numpy as np
     import torch
 
+    from vampnet_tpu_torch.interface import _expand_row_keys
+    from vampnet_tpu_torch.sampling.sample import remask_noise
     from vampnet_tpu_torch.serve import VampEngine, VampRequest, make_server
     from vampnet_tpu_torch.serve.webapp import audio_to_wav_bytes, wav_bytes_to_audio
 
@@ -1559,8 +1608,13 @@ def serve_engine_and_webapp(iface, sig, counters, card):
                                 sampling_steps=12))
     attn, samp = counters["attention_fwd"], counters["sampler"]
     per_group = 12 * iface.coarse.config.n_layers + 2 * iface.c2f.config.n_layers  # 272
+    # K1 and K10 at the shapes an 8-request group gives them, before the
+    # engine runs (these launches fall outside every counted run)
+    shape_checks = check_engine_shapes(iface, t_tokens, 8)
+    print("engine: kernels at a group's shapes: " + json.dumps(shape_checks))
     eng = VampEngine(iface, max_batch=8, max_wait_ms=5, pipeline_depth=2)
-    result = dict(card=card, requests=ENGINE_REQUESTS, audio_s_per_request=audio_s)
+    result = dict(card=card, requests=ENGINE_REQUESTS, audio_s_per_request=audio_s,
+                  kernel_checks=shape_checks)
     try:
         t0 = time.perf_counter()
         eng.warmup((1, 2, 4, 8), sampling_steps=12)
@@ -1636,31 +1690,60 @@ def serve_engine_and_webapp(iface, sig, counters, card):
             raise AssertionError(f"one 8-request group launched {group_launches}, want "
                                  f"{per_group} and 14")
 
-        # ---- the card's idle share over the 16 at pipeline_depth 1 and 2 ----
-        idle = {}
-        for depth in (1, 2):
-            e = eng if depth == 2 else VampEngine(iface, max_batch=8, max_wait_ms=5,
-                                                  pipeline_depth=1)
-            try:
-                _, wall, _ = engine_run(e, reqs)  # the profiler slows the host: wall without it
+        # ---- the per-row Philox draws of that group, alone: launches, card
+        # time and the host's time to enqueue them ----
+        k8 = torch.randint(0, 2 ** 32, (8, 2), device="cuda", dtype=torch.int64)
+        flat_coarse = t_tokens * iface.coarse.config.n_predict_codebooks
+        c2f_chunk = iface.s2t(iface.c2f.chunk_size_s)
+        n_c2f_chunks = math.ceil(t_tokens / c2f_chunk)
+        flat_c2f = c2f_chunk * iface.c2f.config.n_predict_codebooks
+
+        def philox_draws():
+            for i in range(12):
+                remask_noise(k8, i, flat_coarse)
+            k_c2f = _expand_row_keys(k8, n_c2f_chunks)
+            for i in range(2):
+                remask_noise(k_c2f, i, flat_c2f)
+
+        philox_busy, philox_n = profile("per-row Philox draws of an 8-group", philox_draws)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            philox_draws()
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        philox = dict(kernel_launches=philox_n, busy_ms=philox_busy,
+                      host_enqueue_ms=sorted(host)[len(host) // 2] * 1e3,
+                      share_of_group_launches=philox_n / n8)
+        print("engine: per-row Philox draws of an 8-group: " + json.dumps(philox))
+
+        # ---- the card's idle share over the 16 at pipeline_depth 1 and 2,
+        # in the order 1, 2, 2, 1; busy time from a profiled run, wall time
+        # from an unprofiled run just before it (the profiler slows the host) ----
+        idle = {"depth1": [], "depth2": []}
+        eng1 = VampEngine(iface, max_batch=8, max_wait_ms=5, pipeline_depth=1)
+        try:
+            for depth in (1, 2, 2, 1):
+                e = eng if depth == 2 else eng1
+                _, wall, _ = engine_run(e, reqs)
                 busy, _ = profile(f"engine 16 at pipeline_depth {depth}",
                                   lambda: engine_run(e, reqs))
-            finally:
-                if e is not eng:
-                    e.close()
-            idle[f"depth{depth}"] = dict(wall_s=wall, busy_ms=busy,
-                                         idle_share=1 - busy / (wall * 1e3))
-        lat_sorted = sorted(lat16)
+                idle[f"depth{depth}"].append(dict(wall_s=wall, busy_ms=busy,
+                                                  idle_share=1 - busy / (wall * 1e3)))
+        finally:
+            eng1.close()
         result.update(
             sequential=dict(wall_s=wall_seq, requests_per_s=ENGINE_REQUESTS / wall_seq,
                             audio_s_per_s=ENGINE_REQUESTS * audio_s / wall_seq,
-                            p50_latency_s=float(np.percentile(solo_lat, 50)),
-                            p90_latency_s=float(np.percentile(solo_lat, 90))),
+                            p50_latency_s=nearest_rank(solo_lat, 50),
+                            p90_latency_s=nearest_rank(solo_lat, 90)),
             concurrent=dict(wall_s=wall16, requests_per_s=ENGINE_REQUESTS / wall16,
                             audio_s_per_s=ENGINE_REQUESTS * audio_s / wall16,
-                            p50_latency_s=float(np.percentile(lat_sorted, 50)),
-                            p90_latency_s=float(np.percentile(lat_sorted, 90)),
-                            groups=groups, launches=launches),
+                            p50_latency_s=nearest_rank(lat16, 50),
+                            p90_latency_s=nearest_rank(lat16, 90),
+                            latencies_s=sorted(lat16), groups=groups, launches=launches),
+            philox=philox,
             group8=dict(busy_ms=busy8, kernel_launches=n8, peak_gib=peak8,
                         launches=group_launches,
                         k1_ms=hits["attention_fwd_kernel"][0],
@@ -2021,11 +2104,16 @@ def main() -> int:
             **{shape: {k: v for k, v in r.items()} for shape, r in res.items() if shape != main},
         )
 
+    def engine_errs(name):
+        return {k: v["max_abs_err"] for k, v in engine_phase["kernel_checks"].items()
+                if k.startswith(name)}
+
     kernels = [
         dict(entry("attention_fwd", "vampnet_tpu_torch/csrc/attention_fwd.cu",
                    "vampnet_tpu/ops/flash_attention.py:120", attn), registers=fwd_regs,
              launches_lora=lora_launches["attention_fwd"],
-             launches_per_engine_group=engine_group["attention_fwd"]),
+             launches_per_engine_group=engine_group["attention_fwd"],
+             max_abs_err_engine_shapes=engine_errs("attention_fwd")),
         dict(entry("attention_fwd_masked", "vampnet_tpu_torch/csrc/attention_fwd.cu",
                    "vampnet_tpu/ops/flash_attention.py:93", results["attention_fwd_masked"]),
              also_replaces="without a mask at 896 < t <= 1024: attention_fwd (K1) at t948",
@@ -2037,7 +2125,8 @@ def main() -> int:
         dict(entry("sampler", "vampnet_tpu_torch/csrc/sampler.cu",
                    "vampnet_tpu/ops/sampler_kernel.py:80", samp), registers=sampler_regs,
              launches_lora=lora_launches["sampler"],
-             launches_per_engine_group=engine_group["sampler"]),
+             launches_per_engine_group=engine_group["sampler"],
+             max_abs_err_engine_shapes=engine_errs("sampler")),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, replaces, also in (

@@ -337,11 +337,12 @@ class Interface:
         return gen
 
     def _rng(self, seed):
-        """A generation stage's randomness: per-row keys (b, 2) for a seed
-        array, else a generator (`_generator`)."""
+        """A generation stage's randomness as (generator, row_keys), one of
+        them None: per-row keys (b, 2) for a seed array, else a generator
+        (`_generator`)."""
         if seed is not None and np.ndim(seed) > 0:
-            return _keys_from_seeds(seed, self.device)
-        return self._generator(seed)
+            return None, _keys_from_seeds(seed, self.device)
+        return self._generator(seed), None
 
     def _mask_pipeline(self, z, gen, rand_mask_intensity, n_prefix, n_suffix,
                        periodic_prompt, periodic_prompt_width, _dropout,
@@ -432,7 +433,8 @@ class Interface:
         lm: VampNetLM,
         start_tokens: torch.Tensor,
         mask: torch.Tensor,
-        rng,
+        generator: Optional[torch.Generator],
+        row_keys: Optional[torch.Tensor] = None,
         _sampling_steps: int = 12,
         temperature=1.0,
         mask_temperature=10.5,
@@ -447,12 +449,12 @@ class Interface:
         row_key_offset: Optional[int] = None,
     ) -> torch.Tensor:
         """MaskGIT over chunk rows with `lm`, the T5 bias built once for the
-        chunk length. `rng` is a generator or per-request keys (b, 2).
-        Per-request (b,) parameters and keys are tiled over the chunk rows, as
-        in the JAX package: keys are folded with the global chunk index
-        (`_expand_row_keys`, chunk 0 at `row_key_offset`) where a request has
-        several chunk rows or an offset is given, and used as they are
-        otherwise."""
+        chunk length. Randomness comes from `generator`, or from per-request
+        keys `row_keys` (b, 2) where given. Per-request (b,) parameters and
+        keys are tiled over the chunk rows, as in the JAX package: keys are
+        folded with the global chunk index (`_expand_row_keys`, chunk 0 at
+        `row_key_offset`) where a request has several chunk rows or an
+        offset is given, and used as they are otherwise."""
         if top_k is not None:
             raise NotImplementedError("top_k sampling is not ported: ROADMAP Queue A item 4")
         if cfg_guidance is not None:
@@ -475,15 +477,13 @@ class Interface:
                 v = v.repeat(b_total // v.shape[0])
             return v
 
-        generator, row_keys = rng, None
-        if isinstance(rng, torch.Tensor):
-            generator, row_keys = None, rng
-            if row_keys.shape[0] != b_total or row_key_offset is not None:
-                if b_total % row_keys.shape[0]:
-                    raise ValueError(f"per-row keys of size {row_keys.shape[0]} do not "
-                                     f"divide batch {b_total}")
-                row_keys = _expand_row_keys(row_keys, b_total // row_keys.shape[0],
-                                            int(row_key_offset or 0))
+        if row_keys is not None and (row_keys.shape[0] != b_total
+                                     or row_key_offset is not None):
+            if b_total % row_keys.shape[0]:
+                raise ValueError(f"per-row keys of size {row_keys.shape[0]} do not "
+                                 f"divide batch {b_total}")
+            row_keys = _expand_row_keys(row_keys, b_total // row_keys.shape[0],
+                                        int(row_key_offset or 0))
         bias = position_bias_from_params(lm, chunk_len)
         cbs = self.codebooks[:n_cb]
         return generate(
@@ -507,7 +507,7 @@ class Interface:
         masked coarse codes). `seed` is an int (one generator) or an array of
         b seeds (per-row keys). `gen_fn(start_tokens=, mask=, generator=,
         **kwargs)` replaces the MaskGIT call; with a seed array it gets
-        `row_keys=` in place of `generator=`. The chunk-free path
+        `generator=None` and `row_keys=`. The chunk-free path
         (`chunked=False`) needs the sp mesh, which is not ported."""
         if chunked is False:
             raise NotImplementedError(
@@ -520,12 +520,15 @@ class Interface:
         (pre, post), _ = self._chunk_fns(n_coarse, b, t, self.s2t(lm.chunk_size_s),
                                          lm.mask_token, pin_edges=True)
         cz_masked, m_chunks = pre(z[:, :n_coarse], mask[:, :n_coarse])
-        rng = self._rng(seed)
+        generator, row_keys = self._rng(seed)
         if gen_fn is not None:
-            which = "row_keys" if isinstance(rng, torch.Tensor) else "generator"
-            chunks = gen_fn(start_tokens=cz_masked, mask=m_chunks, **{which: rng}, **kwargs)
+            if row_keys is not None:
+                kwargs["row_keys"] = row_keys
+            chunks = gen_fn(start_tokens=cz_masked, mask=m_chunks, generator=generator,
+                            **kwargs)
         else:
-            chunks = self._run_generate(lm, cz_masked, m_chunks, rng, **kwargs)
+            chunks = self._run_generate(lm, cz_masked, m_chunks, generator,
+                                        row_keys=row_keys, **kwargs)
         c_vamp = post(chunks)
         if z.shape[1] > n_coarse:
             c_vamp = torch.cat([c_vamp, z[:, n_coarse:]], dim=1)
@@ -555,7 +558,9 @@ class Interface:
         z_masked, m_chunks = pre(z, mask)
         kwargs.setdefault("_sampling_steps", 2)
         kwargs.setdefault("typical_filtering", True)
-        fine_z = post(self._run_generate(lm, z_masked, m_chunks, self._rng(seed), **kwargs))
+        generator, row_keys = self._rng(seed)
+        fine_z = post(self._run_generate(lm, z_masked, m_chunks, generator, row_keys=row_keys,
+                                         **kwargs))
         if return_mask:
             return fine_z, torch.where(mask.bool(), lm.mask_token, fine_z)
         return fine_z
