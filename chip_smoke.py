@@ -46,6 +46,20 @@ Phases, each of which must pass (no failure is caught):
      concurrent web clients POSTing the 10 s WAV for two variations each,
      and one ?format=wav request; throughput, latency, busy time, peak
      memory and idle share printed beside the card;
+ 8c. the request options the JAX package takes (`check_sampler_top_k`,
+     `staged_options`, `controls_full_width`, `train_controller`,
+     `masks_and_beats`, `check_option_lms_against_cpu`): K10 with top_k
+     held against its plain version at (4, 3,448) and (16, 2,590), top_k 1,
+     8, 64 and 1,024, top-p off and 0.9, on tied logits, and timed at
+     top_k=64 beside its time without; staged requests with top_k=64,
+     cfg_guidance=3.0 and both (K1 272 and K10 14 each, profiled beside a
+     plain one); a full-width coarse LM with sketch2sound controls (rmsq16
+     and 36-bin chroma) extracted on the card and 12 MaskGIT steps with the
+     controls' CFG (K1 240); 2 controller training steps at b=8 over 10 s
+     (K4 and K8 20 each); the onset mask, beat masks through the DP tracker
+     and a random-weight WaveBeat on the card, and the web app's "follow
+     beat" preset served once; small LMs against the CPU (a control LM's
+     logits, top_k and cfg_guidance tokens);
   9. run a full-width masked `TransformerStack` (b=8, t=862, key-padding
      `x_mask`) forward and backward (the masked training kernels, K5) and
      then forward without grad (the masked forward, K3); check a small
@@ -1036,14 +1050,15 @@ def check_options_against_cpu(gen):
     return result
 
 
-def staged_request(iface, sig, chunk_s, seed):
+def staged_request(iface, sig, chunk_s, seed, **vamp_kw):
     """The Gradio app's sequence on the staged API: encode -> build_mask ->
     set_chunk_size -> vamp -> decode, at the app's mask settings; checks the
-    vamped codes before decoding them."""
+    vamped codes before decoding them. `vamp_kw` (top_k, cfg_guidance) goes
+    to `vamp`."""
     codes = iface.encode(sig)
     mask = iface.build_mask(codes, periodic_prompt=7, upper_codebook_mask=3, seed=seed)
     iface.set_chunk_size(chunk_s)
-    zv = iface.vamp(codes, mask, batch_size=2, _sampling_steps=12, seed=seed)
+    zv = iface.vamp(codes, mask, batch_size=2, _sampling_steps=12, seed=seed, **vamp_kw)
     n_cb = iface.c2f.config.n_codebooks
     if tuple(zv.shape) != (2, n_cb, codes.shape[-1]) or bool((zv == iface.coarse.mask_token).any()):
         raise AssertionError(f"staged vamp gave codes {tuple(zv.shape)} with MASK tokens left: "
@@ -1189,6 +1204,455 @@ def check_small_lms_against_cpu(gen):
                 masked_stack_grad_worst_rel_err=errs[worst], long_logits_rel_err=long_err)
 
 
+def check_sampler_top_k(gen):
+    """K10 with `top_k` against its plain version, untimed but for two
+    calls: at a CFG-doubled coarse request's shape (4, 3,448) with and
+    without the typical filter, and at a c2f engine group's (16, 2,590) with
+    it; top_k off (a cfg_guidance request's), 1, 8, 64 and 1,024, top-p off
+    and 0.9, on logits rounded to multiples of 0.5 (ties at the k-th value).
+    Then the kernel's time at top_k=64 beside its time without, at the
+    first shape."""
+    import torch
+
+    from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits, fused_sample_plain
+
+    dev = "cuda"
+    serving = dict(typical_filtering=True, typical_mass=0.15, typical_min_tokens=64)
+    result = {}
+    for b, flat, settings in ((4, 3448, (("typical", serving),
+                                         ("no_typical", dict(typical_filtering=False)))),
+                              (16, 2590, (("typical", serving),))):
+        logits = torch.round(torch.randn((b, flat, 1024), generator=gen, device=dev) * 6.0) * 0.5
+        keys = torch.randint(0, 2 ** 32, (b, 2), generator=gen, device=dev, dtype=torch.int64)
+        temp = torch.full((b,), 1.0, device=dev)
+        shape = {}
+        for name, kw in settings:
+            for top_k in (None, 1, 8, 64, 1024):
+                for top_p in (None, 0.9):
+                    extra = dict(kw, top_k=top_k)
+                    if top_p is not None:
+                        extra.update(use_top_p=True, top_p=top_p)
+                    label = (f"{name}_top_k_{top_k or 'off'}"
+                             + ("_top_p_0.9" if top_p else ""))
+                    shape[label] = sampler_agreement(label, keys, logits, temp, **extra)
+        result[f"b{b}_flat{flat}"] = shape
+        if b == 4:
+            io_bytes = logits.numel() * 4 + keys.numel() * 8 + b * flat * (8 + 4) + 3 * b * 4
+            ops = logits.numel() * SAMPLER_OPS_PER_LOGIT
+            bound = 1e3 * max(io_bytes / H100_BYTES_PER_S, ops / H100_FP32_FLOPS)
+            for name, kw in settings:
+                run = lambda k, kw=kw: fused_sample_from_logits(keys, 5, logits, temp, 1.0,
+                                                                top_k=k, **kw)
+                shape[f"{name}_ms_top_k_64"] = time_ms(lambda: run(64))
+                shape[f"{name}_ms_no_top_k"] = time_ms(lambda: run(None))
+                shape[f"{name}_plain_ms_top_k_64"] = time_ms(
+                    lambda kw=kw: fused_sample_plain(keys, 5, logits, temp, 1.0, top_k=64, **kw),
+                    reps=5)
+            shape["bound_ms"] = bound
+    mism = sum(v[f"{m}_token_mismatches"] for r in result.values() for v in r.values()
+               if isinstance(v, dict) for m in ("greedy", "noisy"))
+    ties = sum(v[f"{m}_tie_positions"] for r in result.values() for v in r.values()
+               if isinstance(v, dict) for m in ("greedy", "noisy"))
+    result.update(token_mismatches=mism, tie_positions=ties)
+    print("kernel sampler[top_k]: " + json.dumps(result))
+    return result
+
+
+def staged_options(iface, sig, counters, want, n_samples):
+    """Staged requests through `vamp` with top_k=64, cfg_guidance=3.0 and
+    both: each must launch what a plain request does (the unconditional rows
+    ride in the same forwards), and each is profiled beside a plain one."""
+    results = {}
+    busy_plain, _ = profile("staged plain request",
+                            lambda: staged_request(iface, sig, 10, 90))
+    for label, kw in (("top_k_64", dict(top_k=64)), ("cfg_guidance_3", dict(cfg_guidance=3.0)),
+                      ("top_k_64_cfg_guidance_3", dict(top_k=64, cfg_guidance=3.0))):
+        served, _ = serve(f"staged {label}",
+                          lambda i, kw=kw: staged_request(iface, sig, 10, SEED + i, **kw), 1,
+                          counters, want, n_samples)
+        hits = {}
+        busy, n_launch = profile(f"staged {label} request",
+                                 lambda kw=kw: staged_request(iface, sig, 10, 90, **kw),
+                                 totals=("attention_fwd_kernel", "sampler_kernel", "nvjet"),
+                                 hits=hits)
+        results[label] = dict(wall_ms=served["wall_ms"][0], peak_gib=served["peak_gib"],
+                              busy_ms=busy, kernel_launches=n_launch,
+                              launches_per_request=served["launches_per_request"],
+                              kernel_ms={k: v[0] for k, v in hits.items()})
+    results["plain_busy_ms"] = busy_plain
+    print("staged options: " + json.dumps(results))
+    return results
+
+
+def sketch2sound_controller(hop, sr):
+    from vampnet_tpu_torch.control import Sketch2SoundController
+
+    # rmsq16: configs/lora/lora-s2s.yml's control; the chroma key runs the HPSS
+    return Sketch2SoundController(["rmsq16", "hchroma-36c-top3"], hop_length=hop, sample_rate=sr)
+
+
+def controls_full_width(iface, sig, gen):
+    """A full-width coarse LM with the controller's `ctrl_dims` (bf16
+    weights, random from `gen`): the controls extracted on the card from
+    the preprocessed signal, then 12 MaskGIT steps with the controls' CFG,
+    each forward over 2b rows (K1 240 and K10 12 launches)."""
+    import torch
+
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.modules.transformer import position_bias_from_params
+    from vampnet_tpu_torch.ops.flash_attention import flash_attention_with_bias
+    from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits
+    from vampnet_tpu_torch.sampling.generate import generate
+
+    import numpy as np
+
+    cc = iface.codec_config
+    ctl = sketch2sound_controller(cc.hop_length, cc.sample_rate)
+    cfg = LMConfig.coarse(ctrl_dims=tuple(ctl.ctrl_dims.items()))
+    lm = VampNetLM(cfg, device="meta").to_empty(device="cuda")
+    lm.load_state_dict(random_state(lm, gen))
+    for p in lm.parameters():
+        p.data = p.data.to(torch.bfloat16)
+    lm.requires_grad_(False).eval()
+    pre = iface._preprocess(sig).samples[:, 0, :]  # a whole number of codec frames
+    wav = torch.from_numpy(np.concatenate([pre, 0.5 * pre[:, ::-1]])).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctrls = ctl.extract(wav)
+    torch.cuda.synchronize()
+    extract_wall_ms = (time.perf_counter() - t0) * 1e3
+    extract_ms = time_ms(lambda: ctl.extract(wav), reps=5)
+    codes = iface.encode(sig)[:, : cfg.n_codebooks].expand(2, -1, -1).contiguous()
+    t = codes.shape[-1]
+    if any(v.shape[:2] != (2, t) for v in ctrls.values()):
+        raise AssertionError(f"controls {[tuple(v.shape) for v in ctrls.values()]} "
+                             f"for codes of {t} frames")
+    if not all(bool(torch.isfinite(v).all()) for v in ctrls.values()):
+        raise AssertionError("non-finite controls")
+    cgen = torch.Generator(device="cuda").manual_seed(SEED)
+    ctrl_masks = ctl.random_mask(ctrls, torch.full((2,), 0.3, device="cuda"), cgen)
+    mask = iface.build_mask(codes, periodic_prompt=7, upper_codebook_mask=3, seed=SEED)
+    bias = position_bias_from_params(lm, t)
+    cbs = iface.codebooks[: cfg.n_codebooks]
+    rows = []
+
+    def forward(zm, c, cm):
+        rows.append(zm.shape[0])
+        return lm.forward_codes(zm, cbs, position_bias=bias, ctrls=c, ctrl_masks=cm)
+
+    for c in (flash_attention_with_bias, fused_sample_from_logits):
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = generate(forward, codes, mask, cfg.mask_token, cgen, sampling_steps=12,
+                       ctrls=ctrls, ctrl_masks=ctrl_masks, cfg_scale=3.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(attention_fwd=flash_attention_with_bias.launches,
+                    sampler=fused_sample_from_logits.launches)
+    if launches != dict(attention_fwd=12 * cfg.n_layers, sampler=12) or rows != [4] * 12:
+        raise AssertionError(f"controls' CFG generation: launches {launches}, forward rows {rows}")
+    if tuple(out.shape) != tuple(codes.shape) or bool((out == cfg.mask_token).any()):
+        raise AssertionError("controls' CFG generation left MASK tokens or changed the shape")
+    result = dict(ctrl_dims=cfg.ctrl_dims, extract_wall_ms=extract_wall_ms,
+                  extract_ms=extract_ms, generate_wall_ms=wall * 1e3,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, launches=launches,
+                  forward_rows=rows[0])
+    print("controls: " + json.dumps(result))
+    return result
+
+
+def train_controller(codec, codebooks, gen, steps=2):
+    """`steps` full-width coarse training steps at b=8 over 10 s with the
+    controller: the controls extracted from the step's audio on the card,
+    their masks drawn, the LM's ControlEncoder in the forward (K4 and K8 20
+    each a step)."""
+    import torch
+
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.ops.flash_attention import attention_bwd_fused, attention_fwd_lse
+    from vampnet_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    ctl = sketch2sound_controller(codec.config.hop_length, codec.config.sample_rate)
+    cfg = LMConfig.coarse(dropout=0.1, ctrl_dims=tuple(ctl.ctrl_dims.items()))
+    lm = VampNetLM(cfg, device="meta").to_empty(device="cuda")
+    lm.load_state_dict(random_state(lm, gen))
+    opt = make_optimizer(cfg.embedding_dim)
+    state = TrainState.create(lm, opt)
+    step = make_train_step(lm, codec, opt, controller=ctl)
+    audio = train_audio(codec.config.sample_rate, codec.config.hop_length, 10.0, TRAIN_BATCH)
+    enc0 = {k: v.clone() for k, v in lm.ctrl_encoder.state_dict().items()}
+    dgen = torch.Generator(device="cuda").manual_seed(SEED)
+    counters = {"attention_fwd_lse": attention_fwd_lse, "attention_bwd_fused": attention_bwd_fused}
+    walls, peaks, made_all = [], [], []
+    for i in range(steps):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, codebooks[: cfg.n_codebooks], audio, dgen)
+        loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        made = {n: c.launches for n, c in counters.items()}
+        made_all.append(made)
+        print(f"controller train step {i}: wall {walls[-1]:.1f} ms, peak {peaks[-1]:.2f} GiB, "
+              f"loss {loss:.5f}, grad_norm {grad_norm:.5f}, launches {made}")
+        if not (math.isfinite(loss) and math.isfinite(grad_norm)):
+            raise AssertionError(f"controller train step {i}: loss {loss}, grad_norm {grad_norm}")
+        if any(m != cfg.n_layers for m in made.values()):
+            raise AssertionError(f"controller train step {i}: launches {made}")
+    moved = [k for k, v in lm.ctrl_encoder.state_dict().items() if not torch.equal(v, enc0[k])]
+    if len(moved) != len(enc0):
+        raise AssertionError(f"only {moved} of the control encoder moved")
+    result = dict(step_ms=walls, peak_gib=max(peaks), launches_per_step=made_all[-1],
+                  batch=tuple(audio.shape), ctrl_dims=cfg.ctrl_dims)
+    print("controller train: " + json.dumps(result))
+    return result
+
+
+def beat_signal(sr, seconds, bpm=120.0):
+    """The bench signal with a click track on it (a louder one every 4
+    beats), so that onsets and beats are there to find."""
+    import numpy as np
+
+    from vampnet_tpu_torch.audio import AudioSignal
+
+    x = bench_signal(sr, seconds).samples[0, 0].copy()
+    period = int(sr * 60.0 / bpm)
+    for k, start in enumerate(range(int(0.25 * sr), len(x) - period, period)):
+        n = np.arange(int(0.03 * sr))
+        x[start + n] += (0.8 if k % 4 == 0 else 0.4) * np.exp(-n / (0.004 * sr)) \
+            * np.sin(2 * np.pi * 1500 * n / sr)
+    return AudioSignal(x[None, None, :].astype(np.float32), sr)
+
+
+def write_random_wavebeat(path, gen):
+    """A wavebeat Lightning checkpoint at `wavebeat.py`'s default layout
+    (8 blocks, kernel 15, 32 to 256 channels) with random weights and
+    BatchNorm statistics from `gen`."""
+    import torch
+
+    from vampnet_tpu_torch.wavebeat import DsTCNConfig
+
+    cfg = DsTCNConfig.build()
+    sd = {}
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen, device=gen.device)).cpu()
+
+    for n, b in enumerate(cfg.blocks):
+        base = f"blocks.{n}"
+        sd[f"{base}.conv1.weight"] = rnd(b.out_ch, b.in_ch, b.kernel_size,
+                                         scale=(b.in_ch * b.kernel_size) ** -0.5)
+        sd[f"{base}.res_conv.weight"] = rnd(b.out_ch, b.in_ch, 1, scale=b.in_ch ** -0.5)
+        sd[f"{base}.act1.weight"] = torch.full((b.out_ch,), 0.25)
+        for norm in ("norm1", "res_norm"):
+            sd[f"{base}.{norm}.running_mean"] = rnd(b.out_ch, scale=0.1)
+            sd[f"{base}.{norm}.running_var"] = rnd(b.out_ch, scale=0.1, shift=1.0).abs()
+            sd[f"{base}.{norm}.weight"] = rnd(b.out_ch, scale=0.1, shift=1.0)
+            sd[f"{base}.{norm}.bias"] = rnd(b.out_ch, scale=0.1)
+    sd["output.weight"] = rnd(cfg.noutputs, cfg.blocks[-1].out_ch, 1,
+                              scale=cfg.blocks[-1].out_ch ** -0.5)
+    sd["output.bias"] = torch.zeros(cfg.noutputs)
+    hp = dict(ninputs=1, noutputs=2, nblocks=8, kernel_size=15, stride=2, dilation_growth=8,
+              dilation_cycle=2, channel_width=32, channel_growth=32, sample_rate=22050)
+    torch.save({"state_dict": {"model." + k: v for k, v in sd.items()},
+                "hyper_parameters": hp}, path)
+    return cfg
+
+
+def masks_and_beats(iface, counters, want, gen):
+    """The onset mask (`build_mask(onset_mask_width=2)`), `make_beat_mask`
+    through the DP tracker and through a random-weight WaveBeat whose
+    forward runs on the card, and the web app's "follow beat" preset served
+    once with its beat mask applied (`vamp_core`)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vampnet_tpu_torch.beats import DPBeatTracker, WaveBeat
+    from vampnet_tpu_torch.serve.app import PRESETS, vamp_core
+
+    sr = iface.codec_config.sample_rate
+    sig = beat_signal(sr, 10.0)
+    codes = iface.encode(sig)
+    t = codes.shape[-1]
+    result = {}
+    t0 = time.perf_counter()
+    onset = iface.build_mask(codes, sig=sig, periodic_prompt=7, upper_codebook_mask=3,
+                             onset_mask_width=2, seed=SEED)
+    result["onset_mask_ms"] = (time.perf_counter() - t0) * 1e3
+    plain = iface.build_mask(codes, periodic_prompt=7, upper_codebook_mask=3, seed=SEED)
+    # the onset windows are kept on top of the periodic prompt
+    kept, kept_plain = int((onset[0, 0] == 0).sum()), int((plain[0, 0] == 0).sum())
+    if tuple(onset.shape) != tuple(codes.shape) or not kept_plain < kept < t:
+        raise AssertionError(f"onset mask {tuple(onset.shape)} keeps {kept} of {t} steps, "
+                             f"the periodic prompt alone {kept_plain}")
+    result["onset_mask_kept_steps"] = kept
+
+    def beat_mask(tracker, label):
+        iface.beat_tracker = tracker
+        t0 = time.perf_counter()
+        m = iface.make_beat_mask(sig, after_beat_s=0.05)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n_cb = iface.c2f.config.n_codebooks
+        if tuple(m.shape) != (1, n_cb, t) or m.device.type != "cuda":
+            raise AssertionError(f"{label} beat mask {tuple(m.shape)} on {m.device}")
+        beats, down = tracker.extract_beats(sig)
+        result[f"{label}_beat_mask_ms"] = ms
+        result[f"{label}_beats"] = len(beats)
+        result[f"{label}_downbeats"] = len(down)
+        result[f"{label}_mask_kept_steps"] = int((m[0, 0] == 0).sum())
+        return beats
+
+    dp_beats = beat_mask(DPBeatTracker(), "dp")
+    if len(dp_beats) < 10:
+        raise AssertionError(f"the DP tracker found {len(dp_beats)} beats in 10 s of clicks")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/wavebeat.pth"
+        write_random_wavebeat(path, gen)
+        tracker = WaveBeat(path)
+    if tracker.model is None or next(tracker.model.model.parameters()).device.type != "cuda":
+        raise AssertionError("the WaveBeat checkpoint did not load onto the card")
+    beat_mask(tracker, "wavebeat")
+    x = sig.samples[0, 0]
+    result["wavebeat_activations_ms"] = call_ms(lambda: tracker.model.activations(x, sr), reps=5)
+
+    # the web app's "follow beat" preset, its beat mask from the DP tracker
+    iface.beat_tracker = DPBeatTracker()
+    calls = []
+    orig = iface.make_beat_mask
+
+    def spy(*a, **kw):
+        calls.append(orig(*a, **kw))
+        return calls[-1]
+
+    iface.make_beat_mask = spy
+    preset = "small variation (follow beat)"
+    try:
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = vamp_core(iface, (sr, x), seed=SEED + 1, sampling_steps=12, **PRESETS[preset])
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        del iface.make_beat_mask
+        iface.beat_tracker = None
+    made = {n: c.launches for n, c in counters.items()}
+    if len(calls) != 1 or not bool((calls[0] == 0).any()) or made != want:
+        raise AssertionError(f"follow-beat preset: {len(calls)} beat masks, launches {made}")
+    if not all(np.isfinite(v[1]).all() for v in res.variations) or len(res.variations) != 2:
+        raise AssertionError("follow-beat preset: bad output")
+    beat_steps = calls[0][0, 0] == 0
+    if bool((torch.from_numpy(np.asarray(res.mask))[0, 0].to(beat_steps.device)[beat_steps]
+             == iface.coarse.mask_token).any()):
+        raise AssertionError("follow-beat preset: a step the beat mask keeps was regenerated")
+    result["follow_beat"] = dict(preset=preset, wall_ms=wall, launches=made,
+                                 beat_mask_kept_steps=int(beat_steps.sum()))
+    print("masks: " + json.dumps(result))
+    return result
+
+
+def check_option_lms_against_cpu(gen):
+    """Small LMs on the card against the CPU: a control LM's logits (card
+    bf16 compute through the kernels, CPU fp32); then, for 4-step top_k,
+    cfg_guidance and combined generations, sampling on, from shared per-row
+    keys, K10 and the MaskGIT loop on the card against the plain sampler
+    and the same loop on the CPU, both on the card's logits (the CPU's
+    forward replays them). The conditioned rows' inputs must agree at every
+    step; the unconditional rows' may part from the second step on, since
+    they are all MASK and which of their tied positions are re-masked rests
+    on the last bits of K10's and the plain sampler's probabilities (ROADMAP
+    Queue C); what parts is counted."""
+    import dataclasses
+
+    import torch
+
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.ops import flash_attention as fa
+    from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits
+    from vampnet_tpu_torch.sampling.generate import generate
+
+    ctl = sketch2sound_controller(512, 44100)
+    base = LMConfig(n_heads=2, n_layers=2, n_codebooks=4, embedding_dim=128, dropout=0.0)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    cfg = dataclasses.replace(base, ctrl_dims=tuple(ctl.ctrl_dims.items()))
+    lm32 = VampNetLM(dataclasses.replace(cfg, compute_dtype="float32"), device="cpu")
+    lm32.load_state_dict(random_state(lm32, cpu_gen, fan_in=True))
+    lm = VampNetLM(cfg, device="meta").to_empty(device="cuda")
+    lm.load_state_dict(lm32.state_dict())
+    t = 200
+    codes = torch.randint(0, cfg.vocab_size + 1, (2, cfg.n_codebooks, t), generator=cpu_gen)
+    cbs = torch.randn((cfg.n_codebooks, cfg.vocab_size, cfg.latent_dim), generator=cpu_gen)
+    ctrls = {k: torch.rand((2, t, d), generator=cpu_gen) for k, d in cfg.ctrl_dims}
+    cmasks = {k: torch.randint(0, 2, (2, t), generator=cpu_gen) for k, _ in cfg.ctrl_dims}
+    n0 = fa.flash_attention_with_bias.launches
+    with torch.inference_mode():
+        got = lm.forward_codes(codes.cuda(), cbs.cuda(), ctrls={k: v.cuda() for k, v in ctrls.items()},
+                               ctrl_masks={k: v.cuda() for k, v in cmasks.items()}).cpu()
+        ref = lm32.forward_codes(codes, cbs, ctrls=ctrls, ctrl_masks=cmasks)
+    if fa.flash_attention_with_bias.launches - n0 != cfg.n_layers:
+        raise AssertionError("the small control LM did not go through K1")
+    ctrl_err = float((got - ref).abs().max() / ref.abs().max())
+    if not ctrl_err < 5e-2:  # bf16 through 2 layers against fp32, as the other checks
+        raise AssertionError(f"small control LM logits on the card vs CPU fp32: {ctrl_err}")
+
+    # the generations: the card's MaskGIT loop (K1, K10 with top_k, the
+    # doubled cfg batch) against the CPU's (the plain sampler), both drawing
+    # from the same per-row keys, the CPU fed the card's logits step by step.
+    # Forwards in two precisions alone would part the tokens of a multi-step
+    # run: a flip at one position moves every later step's context.
+    lm_gpu = VampNetLM(base, device="meta").to_empty(device="cuda")
+    lm_gpu.load_state_dict(random_state(lm_gpu, gen, fan_in=True))
+    z = torch.randint(0, base.vocab_size, (2, base.n_codebooks, t), generator=cpu_gen)
+    mask = torch.ones_like(z)
+    mask[:, :, ::3] = 0
+    keys = torch.randint(0, 2 ** 32, (2, 2), generator=cpu_gen, dtype=torch.int64)
+    result = dict(control_logits_rel_err=ctrl_err)
+    for label, kw in (("top_k_8", dict(top_k=8)), ("cfg_guidance_3", dict(cfg_guidance=3.0)),
+                      ("top_k_8_cfg_guidance_3", dict(top_k=8, cfg_guidance=3.0))):
+        seen = []
+
+        def card_forward(zm):
+            out = lm_gpu.forward_codes(zm, cbs.cuda())
+            seen.append((zm.cpu(), out.cpu()))
+            return out
+
+        replay = iter(seen)
+        diverged = []  # per step: (conditioned rows part, unconditional rows part)
+        nb = z.shape[0]
+
+        def cpu_forward(zm):
+            zm_card, out = next(replay)
+            diverged.append((not torch.equal(zm[:nb], zm_card[:nb]),
+                             not torch.equal(zm[nb:], zm_card[nb:])))
+            return out
+
+        k10 = fused_sample_from_logits.launches
+        with torch.inference_mode():
+            card = generate(card_forward, z.cuda(), mask.cuda(), base.mask_token,
+                            row_keys=keys.cuda(), sampling_steps=4, **kw).cpu()
+            k10 = fused_sample_from_logits.launches - k10
+            cpu = generate(cpu_forward, z, mask, base.mask_token, row_keys=keys,
+                           sampling_steps=4, **kw)
+        share = token_share(card.numpy(), cpu.numpy())
+        cond_parted = sum(c for c, _ in diverged)
+        if k10 != 4 or share > SOLO_BATCHED_BOUND or cond_parted:
+            raise AssertionError(f"small LM {label}: tokens on the card vs CPU differ at {share} "
+                                 f"(steps parted, conditioned/unconditional rows: {diverged}), "
+                                 f"K10 launches {k10}")
+        result[f"{label}_token_share_differing"] = share
+        result[f"{label}_uncond_steps_parted"] = sum(u for _, u in diverged)
+    return result
+
+
 def fused_interface(iface):
     """An Interface whose LMs take `ffn_impl="fused"` and share `iface`'s
     weight tensors (no copy), so that its peak memory compares with the
@@ -1209,8 +1673,9 @@ def write_reference_lm(path, state, cfg):
     """Write an LM as upstream VampNet saves one, from the port's state dict
     (CPU tensors): the audiotools wrapper `{"state_dict", "metadata":
     {"kwargs"}}`, loralib's adapter names (`lora_A` (r, in), `lora_B`
-    (out, r)), a k=1 conv `embedding.out_proj`, and a weight-normed
-    classifier (v the weight, g its row norms) with vocab-major channels."""
+    (out, r)), a k=1 conv `embedding.out_proj`, a weight-normed classifier
+    (v the weight, g its row norms) with vocab-major channels, and a control
+    encoder's Linears as `ctrl_encoder.ctrl_encoders.{name}`."""
     import torch
 
     v, n_pred = cfg.vocab_size, cfg.n_predict_codebooks
@@ -1227,6 +1692,8 @@ def write_reference_lm(path, state, cfg):
           "classifier.layers.0.weight_g": torch.linalg.vector_norm(w, dim=1)[:, None, None],
           "classifier.layers.0.bias": b}
     for key, x in state.items():
+        if key.startswith("ctrl_encoder.ctrl_"):
+            sd["ctrl_encoder.ctrl_encoders." + key[len("ctrl_encoder.ctrl_"):]] = x
         if not key.startswith("transformer."):
             continue
         name = key.replace(".layers_", ".layers.")
@@ -2043,6 +2510,26 @@ def main() -> int:
     # ---- 8b. the serving engine and the web app (the Interface still bf16) ----
     engine_phase, engine_group = serve_engine_and_webapp(iface, sig, counters, card)
 
+    # ---- 8c. the request options: top_k (K10) and cfg_guidance, sketch2sound
+    # controls, the onset and beat masks (the Interface still bf16) ----
+    t0 = time.perf_counter()
+    topk_k10 = check_sampler_top_k(gen)
+    # K1 at the doubled batch that a cfg_guidance request's coarse stage and
+    # the controls' CFG forwards give it: 2 rows and their unconditional twins
+    # (untimed, outside the counted runs)
+    option_k1 = dict(check_attention(4, t_coarse, coarse_cfg.n_heads, d_head, torch.bfloat16,
+                                     gen, timed=False),
+                     shape=f"b=4 t={t_coarse} h={coarse_cfg.n_heads} d={d_head}")
+    print("kernel attention_fwd at the doubled batch: " + json.dumps(option_k1))
+    options = dict(staged=staged_options(iface, sig, counters, want, n_samples))
+    options["controls"] = controls_full_width(iface, sig, gen)
+    options["controller_train"] = train_controller(iface.codec, iface.codebooks, gen)
+    options["masks"] = masks_and_beats(iface, counters, want, gen)
+    options["cpu_check"] = check_option_lms_against_cpu(gen)
+    print("cpu check: " + json.dumps(options["cpu_check"]))
+    options["phase_s"] = time.perf_counter() - t0
+    print(f"options phase: {options['phase_s']:.1f} s")
+
     # ---- 9. a full-width masked TransformerStack, forward and backward ----
     masked_stack, masked_launches = masked_stack_full_width(gen, t_coarse, valid)
     launches.update(masked_launches)
@@ -2113,7 +2600,8 @@ def main() -> int:
                    "vampnet_tpu/ops/flash_attention.py:120", attn), registers=fwd_regs,
              launches_lora=lora_launches["attention_fwd"],
              launches_per_engine_group=engine_group["attention_fwd"],
-             max_abs_err_engine_shapes=engine_errs("attention_fwd")),
+             max_abs_err_engine_shapes=engine_errs("attention_fwd"),
+             max_abs_err_doubled_batch=option_k1["max_abs_err"]),
         dict(entry("attention_fwd_masked", "vampnet_tpu_torch/csrc/attention_fwd.cu",
                    "vampnet_tpu/ops/flash_attention.py:93", results["attention_fwd_masked"]),
              also_replaces="without a mask at 896 < t <= 1024: attention_fwd (K1) at t948",
@@ -2126,7 +2614,10 @@ def main() -> int:
                    "vampnet_tpu/ops/sampler_kernel.py:80", samp), registers=sampler_regs,
              launches_lora=lora_launches["sampler"],
              launches_per_engine_group=engine_group["sampler"],
-             max_abs_err_engine_shapes=engine_errs("sampler")),
+             max_abs_err_engine_shapes=engine_errs("sampler"), top_k=topk_k10,
+             launches_per_option_request={k: v["launches_per_request"]["sampler"]
+                                          for k, v in options["staged"].items()
+                                          if isinstance(v, dict)}),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, replaces, also in (
@@ -2180,6 +2671,7 @@ def main() -> int:
     print("engine summary: " + json.dumps(engine_phase))
     print("masked stack summary: " + json.dumps(masked_stack))
     print("train summary: " + json.dumps(train))
+    print("options summary: " + json.dumps(options))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

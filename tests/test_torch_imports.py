@@ -49,10 +49,13 @@ def test_port_and_chip_smoke_import_without_jax_or_missing_packages():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     names = out.stdout.strip().splitlines()[-1].split()
-    assert len(names) >= 41  # every module was walked
+    assert len(names) >= 45  # every module was walked
     serve = {"vampnet_tpu_torch.serve." + m
              for m in ("app", "engine", "osc", "token_telephone", "unloop", "webapp")}
     assert serve <= set(names), sorted(serve - set(names))
+    # the sketch2sound controls and the onset and beat masks
+    masks = {"vampnet_tpu_torch." + m for m in ("control", "newmask", "beats", "wavebeat")}
+    assert masks <= set(names), sorted(masks - set(names))
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):

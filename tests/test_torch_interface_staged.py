@@ -233,12 +233,8 @@ def test_unported_options_raise(interfaces):
     _, tiface = interfaces
     z = torch.zeros((1, 4, 30), dtype=torch.int64)
     m = torch.ones_like(z)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        tiface.vamp(z, m, top_k=5, _sampling_steps=1)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        tiface.vamp(z, m, cfg_guidance=3.0, _sampling_steps=1)
-    with pytest.raises(NotImplementedError, match="beats.py"):
-        tiface.build_mask(z, onset_mask_width=2)
+    # top_k, cfg_guidance and the onset mask are ported (tests/test_torch_guidance.py,
+    # tests/test_torch_masks.py); the chunk-free path and per-row mask seeds are not
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         tiface.coarse_vamp(z, m, chunked=False)
     with pytest.raises(NotImplementedError, match="per-row"):

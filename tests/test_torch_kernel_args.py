@@ -1,11 +1,13 @@
 """Port: what the CUDA kernels' wrappers accept before they launch. The
 checks run on `meta` tensors, which carry shapes and dtypes but no data, so
 they need no card: the fused FFN's argument check (any d a multiple of 128,
-as the JAX wrapper asks), and the sampler's per-row parameters (a Python
-number is filled on the device, not copied from the host). Also the kernel
-library's first build under concurrent first calls."""
+as the JAX wrapper asks), the sampler's per-row parameters (a Python
+number is filled on the device, not copied from the host) and its `top_k`
+(checked before the wrapper routes by device). Also the kernel library's
+first build under concurrent first calls."""
 import ctypes
 
+import numpy as np
 import pytest
 import torch
 
@@ -46,6 +48,25 @@ def test_sampler_fills_scalar_row_params(value, want):
     got = sampler_kernel._row_param(value, 3, torch.device("cpu"))
     assert got.dtype == torch.float32 and got.shape == (3,)
     assert torch.equal(got, torch.full((3,), want))
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("top_k", [-1, 0, 1025, 2.0, True])
+def test_sampler_refuses_a_top_k_out_of_range_on_any_device(device, top_k):
+    logits = torch.zeros((2, 3, 1024), device=device)
+    keys = torch.zeros((2, 2), dtype=torch.int64, device=device)
+    with pytest.raises(ValueError, match="top_k"):
+        sampler_kernel.fused_sample_from_logits(keys, 0, logits, 1.0, 0.0, top_k=top_k)
+
+
+def test_sampler_takes_top_k_none_or_an_int_up_to_the_vocabulary():
+    for top_k, want in ((None, 0), (1, 1), (1024, 1024), (np.int64(64), 64)):
+        assert sampler_kernel.check_top_k(top_k) == want
+    logits = torch.zeros((1, 2, 1024), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):  # past the check, not on the card
+        sampler_kernel.fused_sample_from_logits(torch.zeros((1, 2), dtype=torch.int64,
+                                                            device="meta"), 0, logits, 1.0, 0.0,
+                                                top_k=64)
 
 
 def test_sampler_keeps_tensor_row_params():

@@ -11,6 +11,9 @@ Loaders return `(config, tree)`: the tree is a flax-shaped nested dict of
 CPU tensors in the file's dtypes (bf16 as `torch.bfloat16`), which
 `convert.lm_state_dict_from_jax`/`codec_state_dict_from_jax` turn into the
 port's state dicts. Savers take such a tree, of tensors or numpy arrays.
+The wavebeat tracker's pair (`save_wavebeat`, `load_wavebeat`) takes and
+gives the port's `DsTCN` state dict and writes the JAX package's flax
+layout, its BatchNorms already folded.
 """
 from __future__ import annotations
 
@@ -25,6 +28,12 @@ from .codec.convert import codec_from_torch_checkpoint
 from .convert import lm_from_torch_checkpoint, lora_from_torch_checkpoint
 from .modules import LMConfig
 from .modules.lora import merge_lora_state_dict
+from .wavebeat import (
+    DsTCNConfig,
+    dstcn_from_torch_checkpoint,
+    dstcn_state_dict_from_tree,
+    dstcn_tree_from_state_dict,
+)
 
 MAGIC = b"VTPU1\n"
 
@@ -121,3 +130,21 @@ def load_codec(path) -> Tuple[CodecConfig, dict]:
                              for k, v in json.loads(payload["config"]).items()})
         return cfg, payload["params"]
     return codec_from_torch_checkpoint(path)
+
+
+def save_wavebeat(path, config, state_dict: Mapping) -> None:
+    """A wavebeat (dsTCN) `DsTCN` state dict, BatchNorms folded, as a `.vtpu`
+    file in the JAX package's flax layout."""
+    _save(path, "vampnet_wavebeat", json.dumps(dataclasses.asdict(config)),
+          dstcn_tree_from_state_dict(state_dict))
+
+
+def load_wavebeat(path):
+    """A wavebeat checkpoint (`.vtpu` of either package, or a Lightning
+    `.pth`/`.ckpt`) -> (`DsTCNConfig`, `DsTCN` state dict)."""
+    payload = _load_native(path)
+    if payload is not None:
+        _check_kind(payload, "vampnet_wavebeat", path)
+        cfg = DsTCNConfig.from_dict(json.loads(payload["config"]))
+        return cfg, dstcn_state_dict_from_tree(payload["params"])
+    return dstcn_from_torch_checkpoint(path)

@@ -29,6 +29,7 @@
                                                  vocab-major to codebook-major
      loralib lora_A (r, in) / lora_B (out, r) -> lora_a = A.T / lora_b = B.T
      embedding.special.MASK                   -> embedding/special_MASK
+     ctrl_encoder.ctrl_encoders.{name}.weight -> ctrl_encoder/ctrl_{name}/kernel = W.T
    The arithmetic is numpy fp32, as in the JAX converter, so the two agree
    bit for bit.
 """
@@ -41,6 +42,8 @@ import torch
 
 from .modules import LMConfig
 from .util import unflatten_tree
+
+_CTRL_PREFIX = "ctrl_encoder.ctrl_encoders."  # upstream's control encoder Linears
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
@@ -62,9 +65,13 @@ def _leaf(x) -> torch.Tensor:
 
 
 def lm_state_dict_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """A `VampNetLM` param tree -> the port's `VampNetLM` state dict."""
+    """A `VampNetLM` param tree -> the port's `VampNetLM` state dict. The
+    tree's `ctrl_encoder` leaves go in only where `cfg` has `ctrl_dims`: an
+    LM without them ignores the leaves, as the JAX package's does."""
     sd = {}
     for path, x in _flatten(params).items():
+        if path.startswith("ctrl_encoder.") and not cfg.ctrl_dims:
+            continue
         x = _leaf(x)
         site, leaf = path.rsplit(".", 1)
         if leaf == "kernel":
@@ -153,11 +160,10 @@ def _collapse_wn(sd: Dict[str, np.ndarray], base: str) -> Tuple[np.ndarray, np.n
 
 def infer_lm_config(sd: Dict[str, np.ndarray], metadata: dict) -> LMConfig:
     """An `LMConfig` from the checkpoint's metadata kwargs, the rest inferred
-    from the shapes (layers, width, codebooks, LoRA rank)."""
-    if any(k.startswith("ctrl_encoder.") for k in sd):
-        raise NotImplementedError(
-            "the checkpoint carries a ControlEncoder (ctrl_encoder.*), which is not "
-            "ported: ROADMAP Queue A item 4")
+    from the shapes (layers, width, codebooks, LoRA rank). As in the JAX
+    converter, `ctrl_dims` stays unset where the file has a control
+    encoder: the LM serves without it (`lm_state_dict_from_jax` leaves its
+    leaves out), and a caller who wants the control LM sets `ctrl_dims`."""
     kwargs = dict(metadata.get("kwargs", {})) if metadata else {}
     n_layers = 0
     while f"transformer.layers.{n_layers}.norm_1.weight" in sd:
@@ -228,6 +234,15 @@ def lm_params_from_state_dict(sd: Dict[str, np.ndarray], cfg: LMConfig) -> Dict:
         put_linear(o + ("feed_forward", "w_1"), f"{p}.feed_forward.w_1")
         put_linear(o + ("feed_forward", "w_2"), f"{p}.feed_forward.w_2")
     put(("transformer", "norm", "weight"), sd["transformer.norm.weight"])
+
+    # the control encoder (sketch2sound), where the checkpoint has one
+    for k in sd:
+        if k.startswith(_CTRL_PREFIX):
+            name = k.split(".")[2]
+            if k.endswith(".weight"):
+                put(("ctrl_encoder", f"ctrl_{name}", "kernel"), sd[k].T)
+            elif k.endswith(".bias"):
+                put(("ctrl_encoder", f"ctrl_{name}", "bias"), sd[k])
     return unflatten_tree(flat)
 
 

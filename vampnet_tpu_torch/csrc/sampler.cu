@@ -6,13 +6,15 @@
 //   1. the locally-typical filter: bisection of the typicality threshold,
 //      24 steps, until the kept mass reaches typical_mass and the kept count
 //      reaches typical_min_tokens (optional);
-//   2. the nucleus (top-p) filter, bisection form, 24 steps (optional);
-//   3. a temperature softmax;
-//   4. where the row's flag is > 0.5, Gumbel noise from Philox4x32-10 keyed
+//   2. top-k (optional): the k-th largest surviving logit, ties counted,
+//      and every logit below it dropped (ties at the threshold stay);
+//   3. the nucleus (top-p) filter, bisection form, 24 steps (optional);
+//   4. a temperature softmax;
+//   5. where the row's flag is > 0.5, Gumbel noise from Philox4x32-10 keyed
 //      by the row's two key words, with counter (step, position, vocab/4, 0);
 //      the argmax (first maximum wins) of scaled logits + noise; else the
 //      argmax of the filtered logits (greedy);
-//   5. the chosen token's probability under the temperature softmax.
+//   6. the chosen token's probability under the temperature softmax.
 //
 // Design: one warp per position, its 1024 logits in registers (32 a lane,
 // loaded as float4), every reduction a butterfly of warp shuffles (each lane
@@ -37,6 +39,15 @@
 //    based: a kept token draws the bits it draws in the plain version, and a
 //    lane reuses one draw for the neighbours of a group of four. Without the
 //    typical filter the list is all 1024 entries.
+//  * Top-k selects the k-th largest kept logit exactly, by a radix select
+//    over the kept list: 32 passes, most significant bit first, over the
+//    order-preserving uint32 image of each logit (-0.0 taken as +0.0), each
+//    pass a count by ballot and popcount of the entries that match the
+//    prefix so far with the next bit set. Entries below it become -inf in
+//    the list, which drops them from everything that follows, as the plain
+//    version's -inf does. With k at or above the list's length nothing is
+//    dropped (the plain version's k-th value is then the smallest kept one,
+//    or -inf).
 // See ops/sampler_kernel.py for the determinism contract and the bound.
 
 #include <cuda_runtime.h>
@@ -122,6 +133,46 @@ __device__ __forceinline__ int group_slots(const bool (&flag)[4], int base, int 
     q += flag[e] ? 1 : 0;
   }
   return total;
+}
+
+// A float's order-preserving uint32 image: a < b as floats (no NaN) iff
+// image(a) < image(b) as unsigned integers; -0.0 maps where +0.0 does.
+__device__ __forceinline__ uint32_t ordered_bits(float x) {
+  const uint32_t u = __float_as_uint(x == 0.f ? 0.f : x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_ordered_bits(uint32_t o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+// Top-k over the kept list (logits in A, nk entries): the k-th largest
+// value, ties counted, by a radix select over ordered_bits; entries below it
+// become -inf. Every lane ends with the same counts (ballots), so all take
+// the same branch.
+__device__ __forceinline__ void top_k_filter(float* A, int nk, int k, int lane) {
+  uint32_t prefix = 0u, fixed = 0u;  // the bits decided so far, and which they are
+  int need = k;                      // the rank still sought among the entries matching prefix
+  for (int bit = 31; bit >= 0; --bit) {
+    const uint32_t probe = 1u << bit;
+    int count = 0;
+    for (int q0 = 0; q0 < nk; q0 += 32) {
+      const int q = q0 + lane;
+      const bool hit = q < nk && (ordered_bits(A[q]) & (fixed | probe)) == (prefix | probe);
+      count += __popc(__ballot_sync(0xffffffffu, hit));
+    }
+    if (count >= need) {
+      prefix |= probe;
+    } else {
+      need -= count;
+    }
+    fixed |= probe;
+  }
+  const float kth = from_ordered_bits(prefix);
+  for (int q = lane; q < nk; q += 32) {
+    if (A[q] < kth) A[q] = -CUDART_INF_F;
+  }
+  __syncwarp();
 }
 
 // Top-p, the temperature softmax, the draw and the result over the kept
@@ -258,7 +309,7 @@ __global__ void __launch_bounds__(WARPS * 32, BLOCKS_PER_SM) sampler_kernel(
     const float* __restrict__ temperature, const float* __restrict__ top_p,
     const float* __restrict__ flag, long long* __restrict__ tokens,
     float* __restrict__ probs, int b, int flat, int step, int typical,
-    float typical_mass, int typical_min_tokens, int use_top_p) {
+    float typical_mass, int typical_min_tokens, int top_k, int use_top_p) {
   // per warp: c, then the band's c, then the kept logits (A); p, then the
   // band's p, then the kept vocab indices (B)
   __shared__ __align__(16) float lists[WARPS][2][V];
@@ -456,6 +507,7 @@ __global__ void __launch_bounds__(WARPS * 32, BLOCKS_PER_SM) sampler_kernel(
     nk += added;
   }
   __syncwarp();
+  if (top_k > 0 && top_k < nk) top_k_filter(A, nk, top_k, lane);
   if (nk > 128) {
     sample_tail<true>(A, B, nk, lane, row, pos, gpos, step, keys, temperature, top_p, flag,
                       tokens, probs, use_top_p);
@@ -470,9 +522,11 @@ __global__ void __launch_bounds__(WARPS * 32, BLOCKS_PER_SM) sampler_kernel(
 extern "C" int vampnet_sampler(const void* logits, const void* keys, const void* temperature,
                                const void* top_p, const void* flag, void* tokens, void* probs,
                                int b, int flat, int vocab, int step, int typical,
-                               float typical_mass, int typical_min_tokens, int use_top_p,
-                               int device, void* stream) {
-  if (vocab != V || b <= 0 || flat <= 0) return (int)cudaErrorInvalidValue;
+                               float typical_mass, int typical_min_tokens, int top_k,
+                               int use_top_p, int device, void* stream) {
+  if (vocab != V || b <= 0 || flat <= 0 || top_k < 0 || top_k > V) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   // Host threads may launch concurrently (the serving engine's dispatcher
@@ -494,6 +548,6 @@ extern "C" int vampnet_sampler(const void* logits, const void* keys, const void*
       static_cast<const float*>(temperature), static_cast<const float*>(top_p),
       static_cast<const float*>(flag), static_cast<long long*>(tokens),
       static_cast<float*>(probs), b, flat, step, typical, typical_mass,
-      typical_min_tokens, use_top_p);
+      typical_min_tokens, top_k, use_top_p);
   return (int)cudaGetLastError();
 }

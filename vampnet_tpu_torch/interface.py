@@ -2,8 +2,10 @@
 `Interface.from_checkpoints` (the JAX `Interface(...)`: `.vtpu` or upstream
 `.pth` files, LoRA-only overlays), `default`, `load_finetuned` and `reload`
 (the local models directory, `registry.py`), `Interface.from_modules`,
-`quantize`, the staged API (`encode`, `build_mask`, `set_chunk_size`, `vamp`
-with `coarse_vamp` and `coarse_to_fine`, `decode`) and the one-call
+`quantize`, the staged API (`encode`, `build_mask` with the onset mask,
+`set_chunk_size`, `vamp` with `coarse_vamp` and `coarse_to_fine`, `top_k`
+and `cfg_guidance` included, `decode`), the beat masks (`make_beat_mask`,
+`snap_to_beats`, from a wavebeat checkpoint's tracker) and the one-call
 `vamp_e2e`.
 
 The staged API is the sequence the JAX package's Gradio app, web app and
@@ -116,9 +118,8 @@ class Interface:
         self.device = next(codec.parameters()).device
         self.loudness = -24.0
         self.codebooks = codec.codebook_tables()  # (n_cb, vocab, codebook_dim)
-        # beat tracking (wavebeat) is not ported: the apps' "follow beat"
-        # presets then skip the beat mask, as the JAX package does without a
-        # wavebeat checkpoint
+        # a `beats.WaveBeat` where a wavebeat checkpoint was given; without
+        # one the apps' "follow beat" presets skip the beat mask, as in JAX
         self.beat_tracker = None
         # the files the models came from (`from_checkpoints`, `reload`)
         self.codec_path: Optional[Path] = None
@@ -147,10 +148,6 @@ class Interface:
         device = resolve_device(device)
         if codec_ckpt is None or coarse_ckpt is None:
             raise ValueError("from_checkpoints needs a codec and a coarse checkpoint")
-        if wavebeat_ckpt is not None:
-            raise NotImplementedError(
-                "beat tracking (wavebeat_ckpt) is not ported: ROADMAP Queue A item 9, "
-                "beats.py + wavebeat.py")
         default_codec = CodecConfig()
         changed = {k: v for k, v in (codec_overrides or {}).items()
                    if getattr(default_codec, k) != v}
@@ -171,18 +168,29 @@ class Interface:
         self = cls(codec, coarse, c2f, coarse_chunk_size_s, coarse2fine_chunk_size_s)
         self.codec_path, self.coarse_path = Path(codec_ckpt), Path(coarse_ckpt)
         self.c2f_path = Path(coarse2fine_ckpt) if coarse2fine_ckpt is not None else None
+        self._set_beat_tracker(wavebeat_ckpt)
         return self
+
+    def _set_beat_tracker(self, wavebeat_ckpt) -> None:
+        if wavebeat_ckpt is not None:
+            from .beats import WaveBeat
+
+            self.beat_tracker = WaveBeat(wavebeat_ckpt, device=self.device)
 
     @classmethod
     def default(cls, device="cuda") -> "Interface":
         """The models directory's codec, coarse and c2f checkpoints
-        (`registry.py`; beat tracking is not ported, so no wavebeat)."""
-        from .registry import download_codec, download_default
+        (`registry.py`), and its `wavebeat.vtpu` or `wavebeat.pth` where
+        one is there."""
+        from .registry import MODELS_DIR, download_codec, download_default
 
         codec_path = download_codec()
         coarse_path, c2f_path = download_default()
+        wavebeat = next((p for p in (MODELS_DIR / "wavebeat.vtpu", MODELS_DIR / "wavebeat.pth")
+                         if p.exists()), None)
         return cls.from_checkpoints(coarse_ckpt=coarse_path, coarse2fine_ckpt=c2f_path,
-                                    codec_ckpt=codec_path, device=device)
+                                    codec_ckpt=codec_path, device=device,
+                                    wavebeat_ckpt=str(wavebeat) if wavebeat else None)
 
     @classmethod
     def available_models(cls):
@@ -223,7 +231,7 @@ class Interface:
                      coarse_cfg: LMConfig, coarse_params: Mapping,
                      c2f_cfg: Optional[LMConfig] = None, c2f_params: Optional[Mapping] = None,
                      coarse_chunk_size_s: float = 10, coarse2fine_chunk_size_s: float = 3,
-                     device="cuda") -> "Interface":
+                     wavebeat_ckpt: Optional[str] = None, device="cuda") -> "Interface":
         """Build from configs and port state dicts (see `convert.py` for the
         bridge from JAX param trees). LM weights are stored bf16, as the
         JAX package stores them for inference; the codec stays fp32."""
@@ -235,7 +243,9 @@ class Interface:
         if c2f_cfg is not None:
             c2f = _load(VampNetLM(c2f_cfg, device="meta"), c2f_params, device,
                         torch.bfloat16)
-        return cls(codec, coarse, c2f, coarse_chunk_size_s, coarse2fine_chunk_size_s)
+        self = cls(codec, coarse, c2f, coarse_chunk_size_s, coarse2fine_chunk_size_s)
+        self._set_beat_tracker(wavebeat_ckpt)
+        return self
 
     def quantize(self) -> "Interface":
         """Post-training int8 (w8a8) on both LMs, an opt-in for serving: the
@@ -346,15 +356,17 @@ class Interface:
 
     def _mask_pipeline(self, z, gen, rand_mask_intensity, n_prefix, n_suffix,
                        periodic_prompt, periodic_prompt_width, _dropout,
-                       upper_codebook_mask, ncc):
+                       upper_codebook_mask, ncc, onset=None):
         """The mask operators of the JAX `build_mask`, drawing from `gen` in
-        its order: random, inpaint, rolled periodic, dropout, then the
-        codebook masks."""
+        its order: random, inpaint, rolled periodic, the onset mask where one
+        is given, dropout, then the codebook masks."""
         m = pmask.linear_random(gen, z, rand_mask_intensity)
         m = pmask.mask_and(m, pmask.inpaint(z, n_prefix, n_suffix))
         m = pmask.mask_and(m, pmask.periodic_mask(
             z, int(periodic_prompt), int(periodic_prompt_width), random_roll=True,
             generator=gen))
+        if onset is not None:
+            m = pmask.mask_and(m, onset)
         m = pmask.dropout(gen, m, float(_dropout))
         m = pmask.codebook_unmask(m, int(ncc))
         return pmask.codebook_mask(m, int(upper_codebook_mask))
@@ -375,16 +387,73 @@ class Interface:
         ncc: int = 0,
         seed: Optional[int] = None,
     ) -> torch.Tensor:
-        """The JAX `build_mask`: (b, n_codebooks, T) int64, 1 = regenerate."""
-        if onset_mask_width > 0:
-            raise NotImplementedError(
-                "onset_mask_width > 0 needs beats.py (onset detection), which is not "
-                "ported: ROADMAP Queue A item 6, the onset mask")
+        """The JAX `build_mask`: (b, n_codebooks, T) int64, 1 = regenerate.
+        With `onset_mask_width > 0` the onsets of `sig` (`beats.detect_onsets`,
+        on the host) are kept, `onset_mask_width` frames either side."""
         z = self._tensor(z)
+        onset = None
+        if onset_mask_width > 0:
+            if sig is None:
+                raise ValueError("the onset mask needs the signal (sig=)")
+            from .beats import detect_onsets
+
+            onsets = detect_onsets(sig, hop_length=self.codec_config.hop_length)
+            onset = pmask.onset_mask(onsets, z, width=int(onset_mask_width))
         return self._mask_pipeline(
             z, self._generator(seed), rand_mask_intensity, self.s2t(prefix_s),
             self.s2t(suffix_s), periodic_prompt, periodic_prompt_width, _dropout,
-            upper_codebook_mask, ncc)
+            upper_codebook_mask, ncc, onset)
+
+    def make_beat_mask(
+        self,
+        signal: AudioSignal,
+        before_beat_s: float = 0.0,
+        after_beat_s: float = 0.02,
+        mask_downbeats: bool = True,
+        mask_upbeats: bool = True,
+        downbeat_downsample_factor: Optional[int] = None,
+        beat_downsample_factor: Optional[int] = None,
+        dropout: float = 0.0,
+        invert: bool = True,
+    ) -> torch.Tensor:
+        """The JAX `make_beat_mask`: (1, n_codebooks, T) int64 on the device,
+        0 from `before_beat_s` before each beat to `after_beat_s` after it
+        (with `invert`), 1 elsewhere. `dropout` drops a share of the kept
+        steps at random (numpy's unseeded generator, as in JAX)."""
+        if self.beat_tracker is None:
+            raise ValueError("no beat tracker loaded (wavebeat_ckpt)")
+        beats, downbeats = self.beat_tracker.extract_beats(signal)
+        beats_z = [int(self.s2t(b)) for b in beats]
+        downbeats_z = [int(self.s2t(b)) for b in downbeats]
+        beats_z = [b for b in beats_z if b not in set(downbeats_z)]
+
+        seq_len = self.s2t(signal.duration)
+        mask = np.zeros(seq_len, dtype=np.int64)
+        mask_b4 = self.s2t(before_beat_s)
+        mask_after = self.s2t(after_beat_s)
+        beats_z = beats_z[::max(1, beat_downsample_factor or 1)]
+        downbeats_z = downbeats_z[::max(1, downbeat_downsample_factor or 1)]
+
+        rng = np.random.default_rng()
+        idx_lists = ([beats_z] if mask_upbeats else []) + ([downbeats_z] if mask_downbeats else [])
+        for idxs in idx_lists:
+            for beat_idx in idxs:
+                lo, hi = max(int(beat_idx - mask_b4), 0), min(int(beat_idx + mask_after), seq_len)
+                mask[lo:hi] = (rng.random(hi - lo) >= dropout).astype(np.int64)
+        mask = np.clip(mask, 0, 1)
+        if invert:
+            mask = 1 - mask
+        n_cb = (self.c2f if self.c2f is not None else self.coarse).config.n_codebooks
+        return self._tensor(np.tile(mask[None, None, :], (1, n_cb, 1)))
+
+    def snap_to_beats(self, signal: AudioSignal) -> AudioSignal:
+        """`signal` trimmed to start at its first beat and end at its last."""
+        if self.beat_tracker is None:
+            raise ValueError("no beat tracker loaded (wavebeat_ckpt)")
+        beats, _ = self.beat_tracker.extract_beats(signal)
+        samples_begin = int(beats[0] * signal.sample_rate)
+        samples_end = int(beats[-1] * signal.sample_rate)
+        return signal.clone().trim(samples_begin, signal.length - samples_end)
 
     # ---------- generation ----------
 
@@ -454,11 +523,9 @@ class Interface:
         keys are tiled over the chunk rows, as in the JAX package: keys are
         folded with the global chunk index (`_expand_row_keys`, chunk 0 at
         `row_key_offset`) where a request has several chunk rows or an
-        offset is given, and used as they are otherwise."""
-        if top_k is not None:
-            raise NotImplementedError("top_k sampling is not ported: ROADMAP Queue A item 4")
-        if cfg_guidance is not None:
-            raise NotImplementedError("cfg_guidance is not ported: ROADMAP Queue A item 4")
+        offset is given, and used as they are otherwise. `top_k` goes to the
+        sampler kernel; `cfg_guidance` appends one unconditional row per row
+        (`generate`)."""
         if sampler_impl != "auto":
             raise NotImplementedError(
                 f"sampler_impl={sampler_impl!r}: the port has one sampler, the fused "
@@ -493,8 +560,9 @@ class Interface:
             sampling_steps=int(_sampling_steps), temperature=expand(temperature),
             mask_temperature=expand(mask_temperature),
             typical_filtering=bool(typical_filtering), typical_mass=float(typical_mass),
-            typical_min_tokens=int(typical_min_tokens), top_p=expand(top_p),
+            typical_min_tokens=int(typical_min_tokens), top_k=top_k, top_p=expand(top_p),
             sample_cutoff=expand(sample_cutoff), row_keys=row_keys,
+            cfg_guidance=None if cfg_guidance is None else float(cfg_guidance),
         )
 
     @torch.inference_mode()

@@ -1,6 +1,6 @@
 """Mask algebra (counterpart of `vampnet_tpu/mask.py`), the functions the
-serving paths (`vamp_e2e` and the staged `build_mask`/`vamp`) and the
-training step use. Masks are int64 tensors (batch, n_codebooks, seq) with
+serving paths (`vamp_e2e` and the staged `build_mask`/`vamp`, its onset
+mask included) and the training step use. Masks are int64 tensors (batch, n_codebooks, seq) with
 1 = regenerate and 0 = keep. Randomness comes from an explicit
 `torch.Generator` on the mask's device."""
 from __future__ import annotations
@@ -8,6 +8,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .util import scalar_to_batch_array
@@ -16,6 +17,12 @@ from .util import scalar_to_batch_array
 def _gamma(r: torch.Tensor) -> torch.Tensor:
     """Cosine mask schedule, in fp32."""
     return torch.clamp(torch.cos(r * math.pi / 2), 1e-10, 1.0)
+
+
+def _invgamma(y) -> torch.Tensor:
+    """Inverse of the cosine schedule: 2 arccos(y) / pi."""
+    y = torch.as_tensor(y, dtype=torch.float32)
+    return 2 * torch.arccos(y) / math.pi
 
 
 def full_mask(x: torch.Tensor) -> torch.Tensor:
@@ -134,3 +141,16 @@ def time_stretch_mask(x: torch.Tensor, stretch_factor: int) -> torch.Tensor:
     if stretch_factor < 1:
         raise ValueError(f"stretch factor must be >= 1, got {stretch_factor}")
     return periodic_mask(x, stretch_factor, width=1)
+
+
+def onset_mask(onset_frame_idxs, z: torch.Tensor, width: int = 1) -> torch.Tensor:
+    """Keep a window [idx - width, idx + width) around each onset frame (the
+    indices come from the host, `beats.detect_onsets`), regenerate the rest;
+    shaped like z, on z's device."""
+    idxs = np.asarray(onset_frame_idxs, dtype=np.int64).reshape(-1)
+    t = z.shape[-1]
+    keep = np.zeros((t,), dtype=bool)
+    for idx in idxs:
+        keep[max(0, int(idx) - width):min(t, int(idx) + width)] = True
+    mask = torch.from_numpy(np.where(keep, 0, 1).astype(np.int64)).to(z.device)
+    return mask[None, None, :].expand(z.shape).contiguous()

@@ -22,14 +22,17 @@ attention route (`ops/attention.py`): "auto" (the kernels on the card),
 "pallas", "xla" (the library call) or "ring" (not ported). `TransformerStack`
 takes an attention mask `x_mask` (b, t, t) or (b, 1, t, t), 0 = blocked, as
 the JAX stack does; `VampNetLM` passes none, as in JAX. LoRA adapters
-(`lora_r > 0`) sit on w_qs, w_vs, fc, w_1 and w_2 (`modules/lora.py`). Not
-ported yet: ControlEncoder (`ctrl_dims`), ring attention and remat.
+(`lora_r > 0`) sit on w_qs, w_vs, fc, w_1 and w_2 (`modules/lora.py`). With
+`ctrl_dims` the LM takes sketch2sound controls: a `ControlEncoder` (one
+Dense per control, masked per frame, classifier-free-guidance dropout while
+training) adds them to the embedding before the stack. Not ported yet: ring
+attention and remat.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -61,7 +64,7 @@ class LMConfig:
     ffn_impl: str = "auto"  # auto | xla | fused; "auto" is the unfused path, as in JAX
     remat: bool = False  # recompute each layer in the backward; not ported (item 5)
     quantization: Optional[str] = None  # None | "int8" (w8a8 projections)
-    ctrl_dims: Optional[Tuple[Tuple[str, int], ...]] = None  # ControlEncoder; not ported (item 4)
+    ctrl_dims: Optional[Tuple[Tuple[str, int], ...]] = None  # (name, dim) per control
     cfg_dropout_prob: float = 0.2
     compute_dtype: str = "bfloat16"
 
@@ -267,6 +270,64 @@ class TransformerStack(nn.Module):
         return self.norm(x)
 
 
+class CFGDropout(nn.Module):
+    """Classifier-free-guidance dropout along the batch: a row is kept where
+    its uniform draw is > p and zeroed elsewhere, with no 1 / (1 - p)
+    rescale (unlike `F.dropout`). The identity without a generator or at
+    p = 0."""
+
+    def __init__(self, p: float = 0.2):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        if generator is None or self.p == 0.0:
+            return x
+        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                       device=x.device)
+        return x * (u > self.p).to(x.dtype)
+
+
+class ControlEncoder(nn.Module):
+    """One Dense per control (`ctrl_{name}`, dim -> d_model), each masked by
+    its per-frame mask and put through `cfg_{name}` dropout at p, summed in
+    `ctrl_dims` order, then `cfg_all` dropout at p / 2. Controls are
+    (b, t, dim), masks (b, t)."""
+
+    def __init__(self, ctrl_dims: Tuple[Tuple[str, int], ...], d_model: int,
+                 cfg_dropout_prob: float = 0.2, compute_dtype: torch.dtype = torch.bfloat16,
+                 device=None):
+        super().__init__()
+        self.ctrl_dims = tuple((str(k), int(v)) for k, v in ctrl_dims)
+        self.compute_dtype = compute_dtype
+        for name, dim in self.ctrl_dims:
+            if "." in name or not name:
+                raise ValueError(f"control name {name!r} cannot name a parameter")
+            self.add_module(f"ctrl_{name}", Dense(dim, d_model, bias=True,
+                                                  compute_dtype=compute_dtype, device=device))
+            self.add_module(f"cfg_{name}", CFGDropout(cfg_dropout_prob))
+        self.cfg_all = CFGDropout(cfg_dropout_prob / 2)
+
+    def forward(self, embedding: torch.Tensor, ctrls: Dict[str, torch.Tensor],
+                ctrl_masks: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        names = sorted(k for k, _ in self.ctrl_dims)
+        if ctrls is None or sorted(ctrls) != names:
+            raise ValueError(f"ctrls have keys {None if ctrls is None else sorted(ctrls)}, "
+                             f"the control encoder {names}")
+        if ctrl_masks is None or sorted(ctrl_masks) != names:
+            raise ValueError(f"ctrl_masks have keys "
+                             f"{None if ctrl_masks is None else sorted(ctrl_masks)}, "
+                             f"the control encoder {names}")
+        dt = self.compute_dtype
+        out = torch.zeros_like(embedding)
+        for name, _dim in self.ctrl_dims:
+            emb = getattr(self, f"ctrl_{name}")(ctrls[name].to(dt))
+            emb = emb * ctrl_masks[name][:, :, None].to(dt)
+            out = out + getattr(self, f"cfg_{name}")(emb, generator)
+        return self.cfg_all(out, generator)
+
+
 class VampNetLM(nn.Module):
     """The full LM. Parameter names follow the flax tree, so `convert.py`
     maps one onto the other by path."""
@@ -278,10 +339,6 @@ class VampNetLM(nn.Module):
 
             device = resolve_device(device)
         cfg = self.config = config
-        if cfg.ctrl_dims is not None:
-            raise NotImplementedError(
-                "control inputs (LMConfig.ctrl_dims, the ControlEncoder) are not ported: "
-                "ROADMAP Queue A item 4")
         self.embedding = CodebookEmbedding(
             cfg.latent_dim, cfg.n_codebooks, cfg.embedding_dim,
             compute_dtype=cfg.dtype, device=device,
@@ -291,6 +348,9 @@ class VampNetLM(nn.Module):
             cfg.embedding_dim, cfg.vocab_size * cfg.n_predict_codebooks,
             bias=True, compute_dtype=cfg.dtype, device=device,
         )
+        if cfg.ctrl_dims is not None:
+            self.ctrl_encoder = ControlEncoder(cfg.ctrl_dims, cfg.embedding_dim,
+                                               cfg.cfg_dropout_prob, cfg.dtype, device=device)
 
     @property
     def mask_token(self) -> int:
@@ -298,15 +358,22 @@ class VampNetLM(nn.Module):
 
     def forward(self, latents: torch.Tensor,
                 position_bias: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                ctrls: Optional[Dict[str, torch.Tensor]] = None,
+                ctrl_masks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """latents (b, t, n_codebooks*latent_dim) -> fp32 logits
-        (b, t, n_predict_codebooks, vocab). A `generator` turns dropout on
-        (training) and its draws come from it; without one the forward is
-        deterministic."""
+        (b, t, n_predict_codebooks, vocab). A `generator` turns dropout (and
+        the controls' CFG dropout) on (training) and its draws come from it;
+        without one the forward is deterministic. An LM with `ctrl_dims`
+        takes `ctrls` and `ctrl_masks`, one entry per control."""
         cfg = self.config
         if position_bias is None:
             position_bias = position_bias_from_params(self, latents.shape[1])
         x = self.embedding(latents)
+        if cfg.ctrl_dims is not None:
+            x = x + self.ctrl_encoder(x, ctrls, ctrl_masks, generator)
+        elif ctrls is not None:
+            raise ValueError("controls given to an LM without ctrl_dims")
         out = self.transformer(x, position_bias, generator)
         logits = self.classifier(out)  # (b, t, C*vocab), codebook-major
         b, t, _ = logits.shape
@@ -314,7 +381,10 @@ class VampNetLM(nn.Module):
 
     def forward_codes(self, codes: torch.Tensor, codebooks: torch.Tensor,
                       position_bias: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      ctrls: Optional[Dict[str, torch.Tensor]] = None,
+                      ctrl_masks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """codes (b, n_codebooks, t) -> logits in one call (the sampler's
         forward, and the training step's)."""
-        return self(self.embedding.from_codes(codes, codebooks), position_bias, generator)
+        return self(self.embedding.from_codes(codes, codebooks), position_bias, generator,
+                    ctrls, ctrl_masks)

@@ -59,9 +59,10 @@ _SIGNATURES = {
     # down-projection GEMM there (0: no device)
     "vampnet_geglu_ffn_block_n": (_I, _I, _I, _I),
     # logits, keys, temp, top_p, flag, tokens, probs, b, flat, vocab, step,
-    # typical, typical_mass, typical_min_tokens, use_top_p, device, stream
+    # typical, typical_mass, typical_min_tokens, top_k (0: off), use_top_p,
+    # device, stream
     "vampnet_sampler": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _F, _I, _I, _I, _P),
+                        _I, _F, _I, _I, _I, _I, _P),
 }
 
 

@@ -3,7 +3,8 @@ version.
 
 Replaces the Pallas kernel `_kernel` in `vampnet_tpu/ops/sampler_kernel.py:80`
 (`fused_sample_from_logits` `:151`), which the TPU runs once per MaskGIT
-step. Same steps: typical filter (bisection, 24 steps), optional top-p
+step. Same steps: typical filter (bisection, 24 steps), optional top-k
+(the k-th largest logit after the typical filter, ties kept), optional top-p
 (bisection, 24 steps), temperature softmax, Gumbel-max draw where the row's
 flag is > 0.5 and greedy argmax elsewhere (first maximum wins), and the
 chosen token's probability. The vocabulary is fixed at 1024.
@@ -35,11 +36,18 @@ an SM (80 registers a thread). After 6 bisection steps over all entries,
 the entries already decided are carried as a count and a mass and the
 remaining 18 steps run over the undecided band alone (the same comparisons,
 so the same kept set). The kept tokens are then listed in ascending vocab
-order, and top-p, the softmax, the noise and the argmax run over them alone:
-a dropped token adds exp(-inf) = 0 to every sum and wins no argmax.
+order, and top-k, top-p, the softmax, the noise and the argmax run over them
+alone: a dropped token adds exp(-inf) = 0 to every sum and wins no argmax.
+Top-k takes the k-th largest kept logit exactly (a radix select over the
+floats' order-preserving 32-bit images, 32 ballot-and-popcount passes over
+the list), so its kept set is the plain version's `torch.topk` threshold,
+ties included, and not a bisection's approximation of it. In the JAX
+package `top_k` bypasses the Pallas kernel (its generate takes the XLA
+sampler then); the port has one sampler, so the kernel takes the filter.
 """
 from __future__ import annotations
 
+import numbers
 from typing import Optional
 
 import torch
@@ -94,11 +102,23 @@ def philox_uniform(row_keys: torch.Tensor, step: int, flat: int,
     return uniform_from_bits(words.reshape(b, flat, vocab))
 
 
+def check_top_k(top_k: Optional[int]) -> int:
+    """`top_k` (None: off, or 1 to the vocabulary) as the kernel's int, 0
+    for off."""
+    if top_k is None:
+        return 0
+    if isinstance(top_k, bool) or not isinstance(top_k, numbers.Integral) \
+            or not 1 <= top_k <= VOCAB:
+        raise ValueError(f"top_k must be None or an int in [1, {VOCAB}], got {top_k!r}")
+    return int(top_k)
+
+
 def fused_sample_plain(row_keys, step, logits, temperature, do_sample, top_p=None,
                        typical_filtering=True, typical_mass=0.15,
-                       typical_min_tokens=64, use_top_p=False):
+                       typical_min_tokens=64, use_top_p=False, top_k=None):
     """The kernel's function in plain PyTorch (sample.py's filters plus the
     kernel's Philox noise)."""
+    top_k = check_top_k(top_k) or None
     b, flat, v = logits.shape
     sample = _row_param(do_sample, b, logits.device)
     noise = None
@@ -107,7 +127,7 @@ def fused_sample_plain(row_keys, step, logits, temperature, do_sample, top_p=Non
     return sample_from_logits(
         logits.float(), noise, sample=sample,
         temperature=_row_param(temperature, b, logits.device),
-        top_p=_row_param(top_p, b, logits.device) if use_top_p else None,
+        top_k=top_k, top_p=_row_param(top_p, b, logits.device) if use_top_p else None,
         typical_filtering=typical_filtering, typical_mass=typical_mass,
         typical_min_tokens=typical_min_tokens,
     )
@@ -127,15 +147,18 @@ def _row_param(x, b: int, device) -> torch.Tensor:
 def fused_sample_from_logits(row_keys: torch.Tensor, step: int, logits: torch.Tensor,
                              temperature, do_sample, top_p: Optional[torch.Tensor] = None,
                              typical_filtering: bool = True, typical_mass: float = 0.15,
-                             typical_min_tokens: int = 64, use_top_p: bool = False):
+                             typical_min_tokens: int = 64, use_top_p: bool = False,
+                             top_k: Optional[int] = None):
     """row_keys (b, 2) int64 holding 32-bit words; logits (b, flat, 1024)
-    fp32; temperature, do_sample, top_p scalars or (b,). Returns (tokens
-    (b, flat) int64, probabilities (b, flat) fp32). CPU tensors take
-    `fused_sample_plain`; CUDA tensors launch the kernel."""
+    fp32; temperature, do_sample, top_p scalars or (b,); top_k None (off)
+    or an int in [1, 1024]. Returns (tokens (b, flat) int64, probabilities
+    (b, flat) fp32). CPU tensors take `fused_sample_plain`; CUDA tensors
+    launch the kernel."""
+    k = check_top_k(top_k)
     if logits.device.type == "cpu":
         return fused_sample_plain(
             row_keys, step, logits, temperature, do_sample, top_p,
-            typical_filtering, typical_mass, typical_min_tokens, use_top_p)
+            typical_filtering, typical_mass, typical_min_tokens, use_top_p, top_k)
     from . import build
 
     build.refuse_grad("sampler", logits, temperature, do_sample, top_p)
@@ -164,7 +187,7 @@ def fused_sample_from_logits(row_keys: torch.Tensor, step: int, logits: torch.Te
     rc = build.library().vampnet_sampler(
         logits.data_ptr(), keys.data_ptr(), temp.data_ptr(), topp.data_ptr(),
         flag.data_ptr(), tokens.data_ptr(), probs.data_ptr(), b, flat, v, int(step),
-        int(typical_filtering), float(typical_mass), int(typical_min_tokens),
+        int(typical_filtering), float(typical_mass), int(typical_min_tokens), k,
         int(use_top_p), logits.device.index or 0, stream,
     )
     build.check(rc, "sampler")

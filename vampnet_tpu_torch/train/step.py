@@ -20,8 +20,13 @@ moments). What it adds:
 Parameters are updated in place (the JAX step returns new trees); that
 saves a copy of 328 M fp32 parameters at coarse width.
 
+With a `Sketch2SoundController` (`control.py`) the step extracts the
+controls from the step's audio on its device, trims them to the codes'
+length, draws their random masks from the step's generator and forwards
+through the LM's ControlEncoder (CFG dropout on), as the JAX step does.
+
 Not ported yet: the bf16-moment option (`_scale_by_adam_lowmem`), LoRA-only
-training (`lora_filter`), `encode_microbatch`, the ControlEncoder path.
+training (`lora_filter`), `encode_microbatch`.
 """
 from __future__ import annotations
 
@@ -156,43 +161,48 @@ def loss_and_metrics(logits: torch.Tensor, target: torch.Tensor, flat_mask: torc
 def loss_and_grads(model, z_masked: torch.Tensor, codebooks: torch.Tensor,
                    target: torch.Tensor, flat_mask: torch.Tensor, r: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
-                   label_smoothing: float = 0.1):
+                   label_smoothing: float = 0.1, ctrls=None, ctrl_masks=None):
     """The JAX step's `loss_fn` under `value_and_grad`: the forward with
     dropout drawn from `generator` (none without one), the loss, and the gradient of every
     trainable parameter. Returns (loss, metrics, grads)."""
     params = [p for p in model.parameters() if p.requires_grad]
     with torch.enable_grad():
-        logits = model.forward_codes(z_masked, codebooks, generator=generator)
+        logits = model.forward_codes(z_masked, codebooks, generator=generator, ctrls=ctrls,
+                                     ctrl_masks=ctrl_masks)
         loss, metrics = loss_and_metrics(logits, target, flat_mask, r, label_smoothing)
         grads = list(torch.autograd.grad(loss, params))
     return loss.detach(), metrics, grads
 
 
 def make_train_step(lm_model, codec_model, optimizer: Optimizer,
-                    label_smoothing: float = 0.1):
+                    label_smoothing: float = 0.1, controller=None):
     """Returns train_step(state, codebooks, audio, generator) -> (state,
     metrics): encode with the frozen codec, draw r ~ U(0, 1) and the random
-    mask from `generator`, then `train_step.with_mask`.
+    mask from `generator` (with a `controller`, extract the controls from
+    the audio and draw their masks too), then `train_step.with_mask`.
 
-    `train_step.with_mask(state, codebooks, z, r, mask, generator)` is the
-    step after the random draws: `codebook_unmask` -> `apply_mask` ->
-    forward, loss and grads -> clip and AdamW. The tests hand it the JAX
-    step's r and mask."""
+    `train_step.with_mask(state, codebooks, z, r, mask, generator, ctrls,
+    ctrl_masks)` is the step after the random draws: `codebook_unmask` ->
+    `apply_mask` -> forward, loss and grads -> clip and AdamW. The tests
+    hand it the JAX step's r, mask and control masks."""
     cfg = lm_model.config
     if cfg.remat:
         raise NotImplementedError(
             "LMConfig.remat (recompute each layer in the backward) is not ported: "
             "ROADMAP Queue A item 5")
+    if controller is not None and cfg.ctrl_dims is None:
+        raise ValueError("a controller needs an LM with ctrl_dims")
     n_cb, ncc, mask_token = cfg.n_codebooks, cfg.n_conditioning_codebooks, cfg.mask_token
 
-    def with_mask(state: TrainState, codebooks, z, r, mask, generator=None):
+    def with_mask(state: TrainState, codebooks, z, r, mask, generator=None, ctrls=None,
+                  ctrl_masks=None):
         mask = pmask.codebook_unmask(mask, ncc)
         z_masked, mask = pmask.apply_mask(z, mask, mask_token)
         flat_mask = codebook_flatten(mask[:, ncc:, :])
         target = z[:, ncc:, :]
         _loss, metrics, grads = loss_and_grads(
             state.model, z_masked, codebooks, target, flat_mask, r, generator,
-            label_smoothing)
+            label_smoothing, ctrls, ctrl_masks)
         metrics["grad_norm"] = optimizer.update(grads, state.opt_state, state.params)
         state.step += 1
         return state, metrics
@@ -202,7 +212,14 @@ def make_train_step(lm_model, codec_model, optimizer: Optimizer,
             z = codec_model.encode(audio)[:, :n_cb, :]
         r = torch.rand((z.shape[0],), generator=generator, device=z.device)
         mask = pmask.random(generator, z, r)
-        return with_mask(state, codebooks, z, r, mask, generator)
+        ctrls = ctrl_masks = None
+        if controller is not None:
+            t = z.shape[-1]
+            with torch.no_grad():
+                ctrls = {k: v[:, :t] for k, v in controller.extract(audio[..., 0]).items()}
+            ctrl_masks = {k: v[:, :t] for k, v in
+                          controller.random_mask(ctrls, r, generator).items()}
+        return with_mask(state, codebooks, z, r, mask, generator, ctrls, ctrl_masks)
 
     train_step.with_mask = with_mask
     return train_step
