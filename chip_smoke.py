@@ -83,7 +83,24 @@ Phases, each of which must pass (no failure is caught):
      (`available_models`, `Interface.default()`, `load_finetuned`, `reload`
      with the loaded paths); int8 requests after `quantize()`; a small LoRA
      LM against the CPU; both LoRA requests profiled; file sizes and load
-     and write seconds printed.
+     and write seconds printed;
+ 14. the trainer (`trainer_phase`), in a temporary directory (it fails if
+     the disk has too little room): 16 synthetic 12 s WAVs and a
+     random-weight codec file; the b=2 x 10 s encode and decode under each
+     codec option (fp32/xla, fp32/matmul, bf16/xla, bf16/matmul, a bf16
+     decoder: card ms, the share of codes that differ from fp32/xla, the
+     decoded audio's relative error); `train.loop.train` from
+     configs/vampnet.yml at b=8 (4 steps, validation every 2, samples at 4:
+     K4 = K8 = 20 a step, K1 80 a validation and 240 a sample generation,
+     K10 12), resumed to step 6; the trained LMs' `model.vtpu` served through
+     `Interface.from_checkpoints` (K1 272, K10 14); 2 c2f steps from
+     configs/c2f.yml (b=8 x 3 s, K4 = K8 = 16); 2 LoRA fine-tune steps from
+     configs/lora/lora.yml on the coarse `.vtpu` (base weights bitwise
+     unchanged, every adapter moved, lora.vtpu written); then coarse b=8
+     steps with fp32 and bf16 Adam moments, remat at b=8 and b=16 (K4 40 a
+     step) and `encode_microbatch=2`: step ms, peak memory, launches, the
+     host's wait on the loader, checkpoint seconds and sizes, validation
+     and sample ms.
 Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernels
 against their plain versions at the serving shapes, the w8a8 kernel also at
 ragged shapes (m 1, 37, 300; k 16, 80, 2,560; n 8, 40, 5,128; bf16 and fp32
@@ -98,6 +115,7 @@ JSON line with every kernel's numbers, the card line again, and
 without the package beside it, it exits non-zero and prints no result.
 """
 import base64
+import contextlib
 import json
 import math
 import subprocess
@@ -2301,6 +2319,405 @@ def serve_engine_and_webapp(iface, sig, counters, card):
     return result, group_launches
 
 
+def codec_weights(module, gen):
+    """Codec weights whose codes spread over the codebooks at any width:
+    weight-norm directions normal, gains 0.3-0.7, snake alphas 0.5-1.5,
+    biases 0.01 normal, codebooks normal (the CPU tests' codec draws)."""
+    import torch
+
+    out = {}
+    for k, v in module.state_dict().items():
+        leaf = k.rsplit(".", 1)[-1]
+        u = torch.rand(v.shape, generator=gen, device=gen.device)
+        n = torch.randn(v.shape, generator=gen, device=gen.device)
+        out[k] = {"g": 0.3 + 0.4 * u, "alpha": 0.5 + u, "bias": 0.01 * n}.get(leaf, n)
+    return out
+
+
+def write_training_wavs(root, sr, n_train=12, n_val=4, seconds=12.0):
+    """n_train + n_val WAVs of `seconds` at `sr`: two partials (50-500 Hz
+    apart per file) and noise, from SEED, well above the -30 LUFS gate."""
+    import numpy as np
+
+    from vampnet_tpu_torch.audio import AudioSignal
+
+    rng = np.random.default_rng(SEED)
+    t = np.arange(int(seconds * sr)) / sr
+    for i in range(n_train + n_val):
+        split = "train" if i < n_train else "val"
+        f0 = 80.0 + 37.0 * i
+        wav = (0.3 * np.sin(2 * np.pi * f0 * t) + 0.2 * np.sin(2 * np.pi * 2.5 * f0 * t)
+               + 0.05 * rng.standard_normal(len(t))).astype(np.float32)
+        (root / split).mkdir(parents=True, exist_ok=True)
+        AudioSignal(wav[None, None, :], sr).write(root / split / f"{i:02d}.wav")
+
+
+def codec_options(codec_cfg, state):
+    """The b=2 x 10 s encode and decode under each codec option: card ms
+    (median of CUDA events), the share of codes that differ from fp32/xla,
+    and the decoded audio's relative error against fp32/xla's decode of the
+    same codes."""
+    import dataclasses
+
+    import torch
+
+    from vampnet_tpu_torch.codec import LAC
+
+    audio = train_audio(codec_cfg.sample_rate, codec_cfg.hop_length, 10.0, 2)
+    options = {"fp32/xla": {}, "fp32/matmul": dict(conv_impl="matmul"),
+               "bf16/xla": dict(compute_dtype="bfloat16"),
+               "bf16/matmul": dict(compute_dtype="bfloat16", conv_impl="matmul"),
+               "decoder-bf16/xla": dict(decoder_compute_dtype="bfloat16")}
+    out, ref_codes, ref_wav = {}, None, None
+    for name, opts in options.items():
+        codec = LAC(dataclasses.replace(codec_cfg, **opts), device="meta")
+        codec = codec.to_empty(device="cuda").requires_grad_(False)
+        codec.load_state_dict(state)
+        with torch.no_grad():
+            codes = codec.encode(audio)
+            if ref_codes is None:
+                ref_codes = codes
+            wav = codec.decode_codes(ref_codes)
+            if ref_wav is None:
+                ref_wav = wav
+            enc_ms = time_ms(lambda: codec.encode(audio), reps=5)
+            dec_ms = time_ms(lambda: codec.decode_codes(ref_codes), reps=5)
+        if not bool(torch.isfinite(wav).all()) or wav.shape != ref_wav.shape:
+            raise AssertionError(f"codec {name}: decoded {tuple(wav.shape)}, finite "
+                                 f"{bool(torch.isfinite(wav).all())}")
+        out[name] = dict(encode_ms=enc_ms, decode_ms=dec_ms,
+                         codes_differ=float((codes != ref_codes).float().mean()),
+                         audio_rel_err=rel_err(wav, ref_wav))
+        print(f"trainer codec {name}: " + json.dumps(out[name]))
+        del codec
+    if len(torch.unique(ref_codes)) < min(64, codec_cfg.codebook_size // 2):
+        raise AssertionError("the codec's codes are degenerate: the comparison says nothing")
+    if out["decoder-bf16/xla"]["codes_differ"] != 0.0:
+        raise AssertionError("the decoder's dtype changed the codes")
+    return out
+
+
+def trainer_phase(codec_cfg, sig, kw, n_samples, gen):
+    """Phase 14: the trainer on the card. Writes synthetic WAVs and a
+    random-weight codec into a temporary directory, then runs the codec
+    options, the training loop from configs/vampnet.yml (4 steps with
+    validation, samples and checkpoints, then a resume to step 6), the
+    trained LM served from its model.vtpu, the c2f loop (configs/c2f.yml),
+    a LoRA fine-tune (configs/lora/lora.yml) from a coarse .vtpu, and the
+    step's options (bf16 moments, remat, encode_microbatch). Returns the
+    phase's summary and the launches of K1, K4, K8 and K10 per unit."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vampnet_tpu_torch import config as cfglib
+    from vampnet_tpu_torch.checkpoints import load_lm, save_codec
+    from vampnet_tpu_torch.codec import LAC
+    from vampnet_tpu_torch.convert import lm_state_dict_from_jax
+    from vampnet_tpu_torch.interface import Interface
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.ops import flash_attention as fa
+    from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits
+    from vampnet_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from vampnet_tpu_torch.train import loop as loop_mod
+    from vampnet_tpu_torch.util import unflatten_tree
+
+    t_phase = time.perf_counter()
+    counters = {"attention_fwd": fa.flash_attention_with_bias,
+                "attention_fwd_lse": fa.attention_fwd_lse,
+                "attention_bwd_fused": fa.attention_bwd_fused,
+                "sampler": fused_sample_from_logits}
+    coarse, c2f = LMConfig.coarse(), LMConfig.c2f()
+    n_coarse = sum(v.numel() for v in VampNetLM(coarse, device="meta").state_dict().values())
+    # a coarse tag: fp32 params and two moments, model.vtpu; latest and best
+    # with a preserved state.prev each while a save runs; a margin
+    need = 1.25 * 2 * n_coarse * 4 * (4 + 3)
+    summary = {"card": card_line()}
+
+    def launches():
+        return {n: c.launches for n, c in counters.items()}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    @contextlib.contextmanager
+    def per_unit(units):
+        """Within the block, each call of the loop's train step, validate()
+        and save_samples() appends the counters' change across it to
+        units["step"], units["validation"] and units["sample_generation"]."""
+        orig = {n: getattr(loop_mod, n) for n in ("validate", "save_samples", "make_train_step")}
+
+        def counted(kind, fn):
+            def call(*a, **k):
+                before = launches()
+                out = fn(*a, **k)
+                after = launches()
+                units[kind].append({n: after[n] - before[n] for n in after})
+                return out
+            return call
+
+        loop_mod.validate = counted("validation", orig["validate"])
+        loop_mod.save_samples = counted("sample_generation", orig["save_samples"])
+        loop_mod.make_train_step = lambda *a, **k: counted(
+            "step", orig["make_train_step"](*a, **k))
+        try:
+            yield
+        finally:
+            for n, f in orig.items():
+                setattr(loop_mod, n, f)
+
+    # the kernels at the shapes the loops give them that no earlier phase
+    # holds against the plain versions (untimed, outside the counted runs):
+    # K4/K8 at the c2f step's (b=8, 3 s) and the fine-tune's (lora.yml's
+    # batch, 10 s); K1 with the training LM's fp32 bias at validation's
+    # batch and at the sample generation's 4 rows; K10 at the sample
+    # generation's rows. Their inputs come from a generator of their own, so
+    # that the phase's weights are drawn as without them
+    check_gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    sr, hop = codec_cfg.sample_rate, codec_cfg.hop_length
+    t_of = {conf: math.ceil(float(cfglib.load_config(conf)["AudioDataset.duration"]) * sr / hop)
+            for conf in ("configs/vampnet.yml", "configs/c2f.yml")}
+    t_coarse, t_c2f = t_of["configs/vampnet.yml"], t_of["configs/c2f.yml"]
+    b_val = int(cfglib.load_config("configs/vampnet.yml")["batch_size"])
+    b_lora = int(cfglib.load_config("configs/lora/lora.yml")["batch_size"])
+    d_head = coarse.embedding_dim // coarse.n_heads
+    shape_checks = {}
+    for label, b, t, h in ((f"c2f_step b=8 t={t_c2f}", 8, t_c2f, c2f.n_heads),
+                           (f"lora_step b={b_lora} t={t_coarse}", b_lora, t_coarse,
+                            coarse.n_heads)):
+        for name, r in check_attention_train(b, t, h, d_head, check_gen, timed=False).items():
+            shape_checks.setdefault(name, {})[label] = r["max_abs_err"]
+    for label, b in ((f"validation b={b_val} t={t_coarse} fp32 bias", b_val),
+                     (f"sample_generation b=4 t={t_coarse} fp32 bias", 4)):
+        shape_checks.setdefault("attention_fwd", {})[label] = check_attention(
+            b, t_coarse, coarse.n_heads, d_head, torch.float32, check_gen,
+            timed=False)["max_abs_err"]
+    flat = t_coarse * coarse.n_predict_codebooks
+    logits = torch.randn((4, flat, 1024), generator=check_gen, device="cuda") * 3.0
+    keys = torch.randint(0, 2 ** 32, (4, 2), generator=check_gen, device="cuda",
+                         dtype=torch.int64)
+    agree = sampler_agreement("trainer samples", keys, logits, torch.ones(4, device="cuda"),
+                              typical_filtering=True, typical_mass=0.15, typical_min_tokens=64)
+    shape_checks["sampler"] = {f"sample_generation b=4 flat={flat}":
+                               max(agree["greedy_max_abs_err"], agree["noisy_max_abs_err"])}
+    del logits, keys
+    print("trainer kernel checks: " + json.dumps(shape_checks))
+    summary["max_abs_err_trainer_shapes"] = shape_checks
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+        root = Path(tmp)
+        free = shutil.disk_usage(root).free
+        if free < need:
+            raise AssertionError(f"phase 14 needs {need / 2 ** 30:.1f} GiB free in {root}, "
+                                 f"which has {free / 2 ** 30:.1f} GiB")
+        summary["disk_free_gib"] = free / 2 ** 30
+        write_training_wavs(root / "audio", codec_cfg.sample_rate)
+        codec_state = codec_weights(LAC(codec_cfg, device="meta"), gen)
+        save_codec(root / "codec.vtpu", codec_cfg,
+                   unflatten_tree({tuple(k.split(".")): v.cpu() for k, v in codec_state.items()}))
+
+        # ---- 14.1: the codec's compute options ----
+        summary["codec_options"] = codec_options(codec_cfg, codec_state)
+
+        common = {"codec_ckpt": str(root / "codec.vtpu"), "save_iters": [],
+                  "train/AudioLoader.sources": [str(root / "audio" / "train")],
+                  "val/AudioLoader.sources": [str(root / "audio" / "val")],
+                  "train/AudioDataset.n_examples": 96, "val/AudioDataset.n_examples": 32}
+
+        def run(label, conf, **over):
+            """train() from `conf` with `over`; checks the launches of each
+            train step (K4 = K8 = n_layers), validation (K1 4 n_layers: 4
+            batches) and sample generation (K1 12 n_layers, K10 12: 12
+            MaskGIT steps), each measured across its call, and that no
+            launch fell outside them; returns (state, summary)."""
+            args = {**cfglib.load_config(conf), **common, **over}
+            stats = {}
+            units = {"step": [], "validation": [], "sample_generation": []}
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with per_unit(units):
+                state = loop_mod.train(args, device="cuda", stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            made = launches()
+            steps = len(stats["step_s"])
+            n_layers = state.model.config.n_layers
+            res = dict(conf=conf, wall_s=wall, steps=steps, launches=made,
+                       launches_per_unit=units,
+                       step_ms=[s * 1e3 for s in stats["step_s"]],
+                       loader_wait_ms=[s * 1e3 for s in stats["loader_wait_s"]],
+                       save_s=stats["save_s"], val_ms=[s * 1e3 for s in stats["val_s"]],
+                       sample_ms=[s * 1e3 for s in stats["sample_s"]],
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            print(f"trainer {label}: " + json.dumps(res))
+            none = dict.fromkeys(counters, 0)
+            want = {"step": dict(none, attention_fwd_lse=n_layers, attention_bwd_fused=n_layers),
+                    "validation": dict(none, attention_fwd=4 * n_layers),
+                    "sample_generation": dict(none, attention_fwd=12 * n_layers, sampler=12)}
+            n_units = {"step": steps, "validation": len(stats["val_s"]),
+                       "sample_generation": len(stats["sample_s"])}
+            for kind, got in units.items():
+                if len(got) != n_units[kind] or any(u != want[kind] for u in got):
+                    raise AssertionError(f"trainer {label}: launches per {kind} {got}, "
+                                         f"want {n_units[kind]} x {want[kind]}")
+            outside = {n: made[n] - sum(u[n] for us in units.values() for u in us) for n in made}
+            if any(outside.values()):
+                raise AssertionError(f"trainer {label}: launches outside the steps, "
+                                     f"validations and samples: {outside}")
+            return state, res
+
+        # ---- 14.2: the coarse loop, then a resume to step 6 ----
+        coarse_run = root / "run_coarse"
+        loop = dict(save_path=str(coarse_run), batch_size=8, num_iters=4, val_freq=2,
+                    sample_freq=4, num_workers=4)
+        # (the run's state is dropped at once: held, it would count in the
+        # next run's peak)
+        summary["coarse"] = run("coarse", "configs/vampnet.yml", **loop)[1]
+        state, summary["coarse_resume"] = run("coarse resume", "configs/vampnet.yml",
+                                              **dict(loop, num_iters=6, resume=True))
+        if state.step != 6 or summary["coarse_resume"]["steps"] != 2:
+            raise AssertionError(f"the resume ended at step {state.step}")
+        lines = [json.loads(x) for x in (coarse_run / "metrics.jsonl").read_text().splitlines()]
+        losses = [x["loss"] for x in lines if x["label"] == "train"]
+        if len(losses) != 6 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"coarse loop losses {losses}")
+        for tag in ("latest", "best"):
+            for f in ("state/state.pt", "model.vtpu", "tracker.json"):
+                if not (coarse_run / tag / f).exists():
+                    raise AssertionError(f"coarse loop wrote no {tag}/{f}")
+        summary["coarse"]["train_losses"] = losses
+        summary["checkpoint_gib"] = {f: file_gib(coarse_run / "latest" / f)
+                                     for f in ("state/state.pt", "model.vtpu")}
+        for name in ("reconstructed", "inpainted_prompt", "inpainted_middle"):
+            if len(list((coarse_run / "samples" / "step_4" / name).glob("*.wav"))) != 4:
+                raise AssertionError(f"coarse loop wrote no {name} samples")
+        base = root / "coarse.vtpu"
+        shutil.copyfile(coarse_run / "latest" / "model.vtpu", base)
+        del state
+        shutil.rmtree(coarse_run)
+
+        # ---- 14.3: the c2f loop, 2 steps at b=8 x 3 s ----
+        c2f_run = root / "run_c2f"
+        summary["c2f"] = run("c2f", "configs/c2f.yml", save_path=str(c2f_run), batch_size=8,
+                             num_iters=2, val_freq=0, sample_freq=0, num_workers=4)[1]
+
+        # ---- 14.4: the trained files served through Interface.from_checkpoints ----
+        iface = Interface.from_checkpoints(coarse_ckpt=base, codec_ckpt=root / "codec.vtpu",
+                                           coarse2fine_ckpt=c2f_run / "latest" / "model.vtpu",
+                                           device="cuda")
+        want = {"attention_fwd": 12 * coarse.n_layers + 2 * c2f.n_layers, "sampler": 14}
+        summary["served"], _ = serve(
+            "trained files", lambda i: iface.vamp_e2e(sig, seed=SEED + i, **kw), 1,
+            {k: counters[k] for k in want}, want, n_samples)
+        del iface
+        shutil.rmtree(c2f_run)
+
+        # ---- 14.5: a LoRA fine-tune from the coarse .vtpu ----
+        ft_run = root / "run_lora"
+        ft_state, summary["lora"] = run("lora fine-tune", "configs/lora/lora.yml",
+                                        save_path=str(ft_run),
+                                        num_iters=2, val_freq=0, sample_freq=0,
+                                        init_ckpt=str(base))
+        cfg, tree = load_lm(base)
+        base_sd = lm_state_dict_from_jax(tree, dataclasses.replace(cfg, lora_r=8))
+        sd = ft_state.model.state_dict()
+        frozen_changed = [k for k in base_sd if not torch.equal(sd[k].cpu(), base_sd[k])]
+        adapters_moved = sum(bool(v.abs().sum() > 0) for k, v in sd.items()
+                             if k.endswith("lora_b"))
+        if frozen_changed or adapters_moved != 5 * coarse.n_layers:
+            raise AssertionError(f"lora fine-tune: frozen leaves changed {frozen_changed[:5]}, "
+                                 f"{adapters_moved} adapters moved")
+        if not (ft_run / "latest" / "lora.vtpu").exists():
+            raise AssertionError("the fine-tune wrote no lora.vtpu")
+        summary["lora"].update(adapters_moved=adapters_moved,
+                               lora_vtpu_mib=file_gib(ft_run / "latest" / "lora.vtpu") * 1024)
+        del ft_state, sd
+        shutil.rmtree(ft_run)
+
+    # ---- 14.6: the step's options at coarse b=8 ----
+    codec = LAC(codec_cfg, device="meta").to_empty(device="cuda").requires_grad_(False)
+    codec.load_state_dict(codec_state)
+    cbs = codec.codebook_tables()[: coarse.n_codebooks].detach()
+    options = {}
+    for label, batch, opt_kw, cfg_kw, mb in (
+            ("fp32 moments", 8, {}, {}, None),
+            ("bf16 moments", 8, dict(state_dtype="bfloat16"), {}, None),
+            ("remat b=8", 8, {}, dict(remat=True), None),
+            ("remat b=16", 16, {}, dict(remat=True), None),
+            ("encode_microbatch 2", 8, {}, {}, 2)):
+        cfg = LMConfig.coarse(dropout=0.1, **cfg_kw)
+        lm = VampNetLM(cfg, device="meta").to_empty(device="cuda")
+        lm.load_state_dict(random_state(lm, gen))
+        opt = make_optimizer(cfg.embedding_dim, **opt_kw)
+        state = TrainState.create(lm, opt)
+        step = make_train_step(lm, codec, opt, encode_microbatch=mb)
+        audio = train_audio(codec_cfg.sample_rate, codec_cfg.hop_length, 10.0, batch)
+        dgen = torch.Generator(device="cuda").manual_seed(SEED)
+        fwd_per_step = 2 * cfg.n_layers if cfg.remat else cfg.n_layers
+        want = {"attention_fwd": 0, "attention_fwd_lse": fwd_per_step,
+                "attention_bwd_fused": cfg.n_layers, "sampler": 0}
+        walls, made = [], []
+        for i in range(4):
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, cbs, audio, dgen)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            made.append(launches())
+            if not math.isfinite(loss):
+                raise AssertionError(f"{label} step {i}: loss {loss}")
+            if made[-1] != want:
+                raise AssertionError(f"{label} step {i}: launches {made[-1]}, want {want}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        res = dict(batch=batch, step_ms=walls, median_ms_after_first=sorted(walls[1:])[1],
+                   peak_gib=peak, launches_per_step=made)
+        if mb:
+            with torch.no_grad():
+                full = codec.encode(audio)
+                parts = torch.cat([codec.encode(a) for a in audio.split(mb)])
+            res["codes_differ_from_full_encode"] = float((full != parts).float().mean())
+        if opt_kw:
+            res["moments_dtype"] = str(state.opt_state.mu[0].dtype)
+        options[label] = res
+        print(f"trainer step option {label}: " + json.dumps(res))
+        del lm, state, step, opt
+    summary["step_options"] = options
+
+    def measured(run, kind, name):
+        return [u[name] for u in run["launches_per_unit"][kind]]
+
+    coarse_runs = (summary["coarse"], summary["coarse_resume"])
+    summary["launches"] = {
+        "attention_fwd": dict(
+            coarse_loop=summary["coarse"]["launches"]["attention_fwd"],
+            per_validation=measured(summary["coarse"], "validation", "attention_fwd"),
+            per_sample_generation=measured(summary["coarse"], "sample_generation",
+                                           "attention_fwd"),
+            served_request=summary["served"]["launches_per_request"]["attention_fwd"]),
+        "sampler": dict(
+            coarse_loop=summary["coarse"]["launches"]["sampler"],
+            per_sample_generation=measured(summary["coarse"], "sample_generation", "sampler"),
+            served_request=summary["served"]["launches_per_request"]["sampler"]),
+    }
+    for name in ("attention_fwd_lse", "attention_bwd_fused"):
+        summary["launches"][name] = dict(
+            per_coarse_step=[x for r in coarse_runs for x in measured(r, "step", name)],
+            per_c2f_step=measured(summary["c2f"], "step", name),
+            per_lora_step=measured(summary["lora"], "step", name),
+            per_remat_step=[m[name] for m in options["remat b=8"]["launches_per_step"]])
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print("trainer phase: " + json.dumps(summary))
+    return summary
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2583,6 +3000,10 @@ def main() -> int:
     files, lora_launches, lora_int8_launches = serve_from_files(
         iface.codec, sig, kw, counters, want, n_samples, busy_bf16, launches_bf16)
 
+    # ---- 14. the trainer: the loop from the repo's configs, the codec's
+    # compute options, the step's options ----
+    trainer = trainer_phase(codec_cfg, sig, kw, n_samples, gen)
+
     def entry(name, source, replaces, res, main="coarse"):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return dict(
@@ -2601,7 +3022,9 @@ def main() -> int:
              launches_lora=lora_launches["attention_fwd"],
              launches_per_engine_group=engine_group["attention_fwd"],
              max_abs_err_engine_shapes=engine_errs("attention_fwd"),
-             max_abs_err_doubled_batch=option_k1["max_abs_err"]),
+             max_abs_err_doubled_batch=option_k1["max_abs_err"],
+             max_abs_err_trainer_shapes=trainer["max_abs_err_trainer_shapes"]["attention_fwd"],
+             launches_trainer=trainer["launches"]["attention_fwd"]),
         dict(entry("attention_fwd_masked", "vampnet_tpu_torch/csrc/attention_fwd.cu",
                    "vampnet_tpu/ops/flash_attention.py:93", results["attention_fwd_masked"]),
              also_replaces="without a mask at 896 < t <= 1024: attention_fwd (K1) at t948",
@@ -2615,6 +3038,8 @@ def main() -> int:
              launches_lora=lora_launches["sampler"],
              launches_per_engine_group=engine_group["sampler"],
              max_abs_err_engine_shapes=engine_errs("sampler"), top_k=topk_k10,
+             launches_trainer=trainer["launches"]["sampler"],
+             max_abs_err_trainer_shapes=trainer["max_abs_err_trainer_shapes"]["sampler"],
              launches_per_option_request={k: v["launches_per_request"]["sampler"]
                                           for k, v in options["staged"].items()
                                           if isinstance(v, dict)}),
@@ -2636,6 +3061,8 @@ def main() -> int:
             library_note=res.get("library_note"),
             b16={k: v for k, v in train_k16[name].items()},
             b1_t2048={k: v for k, v in train_k2048[name].items()},
+            launches_trainer=trainer["launches"][name],
+            max_abs_err_trainer_shapes=trainer["max_abs_err_trainer_shapes"][name],
             **({"registers": bwd_regs} if name == "attention_bwd_fused" else {}),
         ))
     for name, replaces, also in (
@@ -2672,6 +3099,7 @@ def main() -> int:
     print("masked stack summary: " + json.dumps(masked_stack))
     print("train summary: " + json.dumps(train))
     print("options summary: " + json.dumps(options))
+    print("trainer summary: " + json.dumps(trainer))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

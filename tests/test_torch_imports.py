@@ -56,6 +56,12 @@ def test_port_and_chip_smoke_import_without_jax_or_missing_packages():
     # the sketch2sound controls and the onset and beat masks
     masks = {"vampnet_tpu_torch." + m for m in ("control", "newmask", "beats", "wavebeat")}
     assert masks <= set(names), sorted(masks - set(names))
+    # the trainer: the config reader (no yaml), the loop, datasets, tracker
+    # and checkpoint manager (no orbax, no optax)
+    trainer = {"vampnet_tpu_torch.config"} | {
+        "vampnet_tpu_torch.train." + m
+        for m in ("loop", "datasets", "tracker", "checkpoints", "step", "scheduler")}
+    assert trainer <= set(names), sorted(trainer - set(names))
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):
@@ -72,6 +78,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):
         LAC(CodecConfig(n_codebooks=2))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Interface.from_modules(CodecConfig(), {}, tiny, {})
+    from vampnet_tpu_torch.train.loop import train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train({"codec_ckpt": "unused.vtpu"})
 
 
 def _run_chip_smoke(cwd):

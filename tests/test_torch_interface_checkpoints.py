@@ -202,25 +202,40 @@ def test_unported_options_raise_naming_their_item(files):
     # tests/test_torch_control.py)
     assert hasattr(VampNetLM(LMConfig(ctrl_dims=(("loudness", 1),)), device="meta"),
                    "ctrl_encoder")
+    # remat is ported (ROADMAP Queue A item 5; tests/test_torch_train_options.py):
+    # the step builds, and the stack recomputes its layers
     tiny = LMConfig(n_heads=2, n_layers=1, n_codebooks=2, latent_dim=4, embedding_dim=32,
                     vocab_size=32, remat=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        make_train_step(VampNetLM(tiny, device="meta"), None, make_optimizer(32))
-    for kw in (dict(compute_dtype="bfloat16"), dict(conv_impl="matmul"),
-               dict(decoder_compute_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
-            LAC(CodecConfig(**kw), device="meta")
+    lm = VampNetLM(tiny, device="meta")
+    assert callable(make_train_step(lm, None, make_optimizer(32)))
+    assert lm.transformer.remat
+    # the codec's compute options are ported (item 3;
+    # tests/test_torch_codec_options.py): each builds with its schedule
+    for kw, dtypes, impl in ((dict(compute_dtype="bfloat16"), ("bfloat16",) * 2, "xla"),
+                             (dict(conv_impl="matmul"), ("float32",) * 2, "matmul"),
+                             (dict(decoder_compute_dtype="bfloat16"), ("float32", "bfloat16"),
+                              "xla")):
+        codec = LAC(CodecConfig(**kw), device="meta")
+        assert (str(codec.encoder.conv_in.dtype), str(codec.decoder.conv_in.dtype)) == \
+            tuple(f"torch.{d}" for d in dtypes)
+        assert codec.decoder.block_0.conv_t.impl == impl
+        # the RVQ's projections stay fp32 under every option
+        assert codec.quantizer.quantizer(0).in_proj.dtype == torch.float32
+    with pytest.raises(ValueError, match="compute dtype"):
+        LAC(CodecConfig(compute_dtype="int8"), device="meta")
     # module 5: a control encoder in an upstream checkpoint is ported
     # (tests/test_torch_control.py); module 8: beat tracking is ported
     # (tests/test_torch_masks.py), and a wavebeat file that cannot be read
-    # leaves the DP tracker; the codec's compute options are not ported
+    # leaves the DP tracker
     ckpts = _ckpts(root)
     iface = Interface.from_checkpoints(**ckpts, wavebeat_ckpt=str(root / "wavebeat.pth"),
                                        device="cpu")
     assert iface.beat_tracker is not None and iface.beat_tracker.model is None
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        Interface.from_checkpoints(**ckpts, codec_overrides=dict(conv_impl="matmul"),
-                                   device="cpu")
+    # codec_overrides takes the runtime options, as the JAX Interface does
+    iface = Interface.from_checkpoints(**ckpts, codec_overrides=dict(conv_impl="matmul"),
+                                       device="cpu")
+    assert iface.codec_config.conv_impl == "matmul"
+    assert iface.codec.encoder.conv_in.impl == "matmul"
     iface = Interface.from_checkpoints(**ckpts, codec_overrides=dict(
         conv_impl="xla", compute_dtype="float32"), device="cpu")
     assert iface.codec_config.conv_impl == "xla"

@@ -1,12 +1,20 @@
-"""LAC neural audio codec (counterpart of `vampnet_tpu/codec/model.py`), the
-parts the serving path uses: `encode` to codes, `decode_codes` back to a
-waveform, `ResidualVectorQuantize.from_codes` and `codebook_tables`.
+"""LAC neural audio codec (counterpart of `vampnet_tpu/codec/model.py`):
+`encode` to codes (optionally the first `n_quantizers` only), `decode_codes`
+and `decode_latents` back to a waveform, `ResidualVectorQuantize.from_codes`
+and `from_latents`, and `codebook_tables`.
 
 Snake + weight-norm conv encoder (rates 2, 4, 8, 8 -> hop 512) and decoder,
 and a residual vector quantizer whose nearest neighbour is the argmax of a
 cosine similarity, taken in fp32. Public functions are channels-last:
 audio (b, t, 1) in and out, as in the JAX package; inside, the layers run
 channels-first.
+
+The compute options are the JAX package's: `compute_dtype` for every conv
+("bfloat16" halves the codec's memory traffic), `decoder_compute_dtype` to
+override it in the decoder alone (the encoder's dtype decides the codes), and
+`conv_impl` ("xla": cuDNN's convolutions, "matmul": the matmul schedules of
+`codec/layers.py`). The RVQ's projections and search stay fp32 under every
+option; the encoder hands them fp32 and the decoder returns fp32.
 """
 from __future__ import annotations
 
@@ -22,9 +30,9 @@ from .layers import Snake1d, WNConv1d, WNConvTranspose1d, no_tf32
 
 @dataclasses.dataclass(frozen=True)
 class CodecConfig:
-    """The JAX `CodecConfig`'s fields and defaults. The port runs fp32 with
-    the `conv_impl="xla"` semantics only: `LAC` refuses any other value of
-    the three schedule fields (ROADMAP Queue A item 3)."""
+    """The JAX `CodecConfig`'s fields and defaults. `compute_dtype`,
+    `decoder_compute_dtype` (None follows `compute_dtype`) and `conv_impl`
+    change the schedule, never the weights."""
 
     sample_rate: int = 44100
     encoder_dim: int = 64
@@ -48,29 +56,30 @@ class CodecConfig:
 
 
 class ResidualUnit(nn.Module):
-    """Snake -> dilated conv(k7) -> Snake -> conv(k1), residual add."""
+    """Snake -> dilated conv(k7) -> Snake -> conv(k1), residual add. `opts`
+    are the convs' `dtype` and `impl`."""
 
-    def __init__(self, dim: int, dilation: int, device=None):
+    def __init__(self, dim: int, dilation: int, device=None, **opts):
         super().__init__()
         self.snake_1 = Snake1d(dim, device=device)
         self.conv_1 = WNConv1d(dim, dim, 7, dilation=dilation,
-                               padding=3 * dilation, device=device)
+                               padding=3 * dilation, device=device, **opts)
         self.snake_2 = Snake1d(dim, device=device)
-        self.conv_2 = WNConv1d(dim, dim, 1, device=device)
+        self.conv_2 = WNConv1d(dim, dim, 1, device=device, **opts)
 
     def forward(self, x):
         return x + self.conv_2(self.snake_2(self.conv_1(self.snake_1(x))))
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, dim: int, stride: int, device=None):
+    def __init__(self, dim: int, stride: int, device=None, **opts):
         super().__init__()
-        self.res_1 = ResidualUnit(dim // 2, 1, device=device)
-        self.res_2 = ResidualUnit(dim // 2, 3, device=device)
-        self.res_3 = ResidualUnit(dim // 2, 9, device=device)
+        self.res_1 = ResidualUnit(dim // 2, 1, device=device, **opts)
+        self.res_2 = ResidualUnit(dim // 2, 3, device=device, **opts)
+        self.res_3 = ResidualUnit(dim // 2, 9, device=device, **opts)
         self.snake = Snake1d(dim // 2, device=device)
         self.conv = WNConv1d(dim // 2, dim, 2 * stride, stride=stride,
-                             padding=math.ceil(stride / 2), device=device)
+                             padding=math.ceil(stride / 2), device=device, **opts)
 
     def forward(self, x):
         return self.conv(self.snake(self.res_3(self.res_2(self.res_1(x)))))
@@ -79,31 +88,32 @@ class EncoderBlock(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, cfg: CodecConfig, device=None):
         super().__init__()
+        opts = dict(dtype=getattr(torch, cfg.compute_dtype), impl=cfg.conv_impl)
         d = cfg.encoder_dim
-        self.conv_in = WNConv1d(1, d, 7, padding=3, device=device)
+        self.conv_in = WNConv1d(1, d, 7, padding=3, device=device, **opts)
         self.n_blocks = len(cfg.encoder_rates)
         for i, stride in enumerate(cfg.encoder_rates):
             d *= 2
-            self.add_module(f"block_{i}", EncoderBlock(d, stride, device=device))
+            self.add_module(f"block_{i}", EncoderBlock(d, stride, device=device, **opts))
         self.snake_out = Snake1d(d, device=device)
-        self.conv_out = WNConv1d(d, cfg.latent_dim, 3, padding=1, device=device)
+        self.conv_out = WNConv1d(d, cfg.latent_dim, 3, padding=1, device=device, **opts)
 
-    def forward(self, x):  # (b, 1, t) -> (b, latent_dim, t / hop)
+    def forward(self, x):  # (b, 1, t) -> (b, latent_dim, t / hop) fp32
         x = self.conv_in(x)
         for i in range(self.n_blocks):
             x = getattr(self, f"block_{i}")(x)
-        return self.conv_out(self.snake_out(x))
+        return self.conv_out(self.snake_out(x)).float()
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, input_dim: int, output_dim: int, stride: int, device=None):
+    def __init__(self, input_dim: int, output_dim: int, stride: int, device=None, **opts):
         super().__init__()
         self.snake = Snake1d(input_dim, device=device)
         self.conv_t = WNConvTranspose1d(input_dim, output_dim, 2 * stride, stride=stride,
-                                        padding=math.ceil(stride / 2), device=device)
-        self.res_1 = ResidualUnit(output_dim, 1, device=device)
-        self.res_2 = ResidualUnit(output_dim, 3, device=device)
-        self.res_3 = ResidualUnit(output_dim, 9, device=device)
+                                        padding=math.ceil(stride / 2), device=device, **opts)
+        self.res_1 = ResidualUnit(output_dim, 1, device=device, **opts)
+        self.res_2 = ResidualUnit(output_dim, 3, device=device, **opts)
+        self.res_3 = ResidualUnit(output_dim, 9, device=device, **opts)
 
     def forward(self, x):
         return self.res_3(self.res_2(self.res_1(self.conv_t(self.snake(x)))))
@@ -112,22 +122,25 @@ class DecoderBlock(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, cfg: CodecConfig, device=None):
         super().__init__()
+        dtype = cfg.decoder_compute_dtype or cfg.compute_dtype
+        opts = dict(dtype=getattr(torch, dtype), impl=cfg.conv_impl)
         d = cfg.decoder_dim
-        self.conv_in = WNConv1d(cfg.latent_dim, d, 7, padding=3, device=device)
+        self.conv_in = WNConv1d(cfg.latent_dim, d, 7, padding=3, device=device, **opts)
         self.n_blocks = len(cfg.decoder_rates)
         in_dim = d
         for i, stride in enumerate(cfg.decoder_rates):
             out_dim = d // (2 ** (i + 1))
-            self.add_module(f"block_{i}", DecoderBlock(in_dim, out_dim, stride, device=device))
+            self.add_module(f"block_{i}", DecoderBlock(in_dim, out_dim, stride, device=device,
+                                                       **opts))
             in_dim = out_dim
         self.snake_out = Snake1d(in_dim, device=device)
-        self.conv_out = WNConv1d(in_dim, 1, 7, padding=3, device=device)
+        self.conv_out = WNConv1d(in_dim, 1, 7, padding=3, device=device, **opts)
 
-    def forward(self, z):  # (b, latent_dim, t / hop) -> (b, 1, t)
+    def forward(self, z):  # (b, latent_dim, t / hop) -> (b, 1, t) fp32
         x = self.conv_in(z)
         for i in range(self.n_blocks):
             x = getattr(self, f"block_{i}")(x)
-        return torch.tanh(self.conv_out(self.snake_out(x)))
+        return torch.tanh(self.conv_out(self.snake_out(x)).float())
 
 
 class VectorQuantize(nn.Module):
@@ -139,14 +152,20 @@ class VectorQuantize(nn.Module):
         self.out_proj = WNConv1d(codebook_dim, input_dim, 1, device=device)
         self.codebook = nn.Parameter(torch.empty(codebook_size, codebook_dim, device=device))
 
-    def forward(self, residual: torch.Tensor):
-        """residual (b, latent, t) -> (projected z_q (b, latent, t), codes (b, t))."""
-        z_e = self.in_proj(residual).transpose(1, 2)  # (b, t, codebook_dim)
+    def decode_latents(self, z_e: torch.Tensor):
+        """z_e (b, t, codebook_dim) -> (nearest codebook entries (b, t,
+        codebook_dim), their indices (b, t)): the argmax of the cosine
+        similarity, one fp32 product per stage."""
         enc = z_e / (torch.linalg.vector_norm(z_e, dim=-1, keepdim=True) + 1e-8)
         cb = self.codebook / (
             torch.linalg.vector_norm(self.codebook, dim=-1, keepdim=True) + 1e-8)
         indices = torch.argmax(torch.matmul(enc, cb.T), dim=-1)
-        z_q = self.codebook[indices]
+        return self.codebook[indices], indices
+
+    def forward(self, residual: torch.Tensor):
+        """residual (b, latent, t) -> (projected z_q (b, latent, t), codes (b, t))."""
+        z_e = self.in_proj(residual).transpose(1, 2)  # (b, t, codebook_dim)
+        z_q, indices = self.decode_latents(z_e)
         # the straight-through form of the JAX package, kept for its rounding
         z_q = z_e + (z_q - z_e)
         return self.out_proj(z_q.transpose(1, 2)), indices
@@ -160,6 +179,7 @@ class ResidualVectorQuantize(nn.Module):
     def __init__(self, cfg: CodecConfig, device=None):
         super().__init__()
         self.n_codebooks = cfg.n_codebooks
+        self.codebook_dim = cfg.codebook_dim
         for i in range(cfg.n_codebooks):
             self.add_module(f"quantizers_{i}", VectorQuantize(
                 cfg.latent_dim, cfg.codebook_size, cfg.codebook_dim, device=device))
@@ -167,12 +187,13 @@ class ResidualVectorQuantize(nn.Module):
     def quantizer(self, i: int) -> VectorQuantize:
         return getattr(self, f"quantizers_{i}")
 
-    def forward(self, z: torch.Tensor):
-        """z (b, latent, t) -> (z_q (b, latent, t), codes (b, n_codebooks, t))."""
+    def forward(self, z: torch.Tensor, n_quantizers: Optional[int] = None):
+        """z (b, latent, t) -> (z_q (b, latent, t), codes (b, n_q, t)), n_q the
+        first `n_quantizers` stages (all by default)."""
         z_q = torch.zeros_like(z)
         residual = z
         codes = []
-        for i in range(self.n_codebooks):
+        for i in range(self.n_codebooks if n_quantizers is None else n_quantizers):
             z_q_i, idx = self.quantizer(i)(residual)
             z_q = z_q + z_q_i
             residual = residual - z_q_i
@@ -184,6 +205,17 @@ class ResidualVectorQuantize(nn.Module):
         z_q = None
         for i in range(codes.shape[1]):
             z_q_i = self.quantizer(i).decode_code_proj(codes[:, i])
+            z_q = z_q_i if z_q is None else z_q + z_q_i
+        return z_q
+
+    def from_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """Concatenated per-stage latents (b, t, n_cb * codebook_dim),
+        channels-last as the JAX package takes them -> summed out_proj
+        outputs (b, latent, t)."""
+        d = self.codebook_dim
+        z_q = None
+        for i in range(latents.shape[-1] // d):
+            z_q_i = self.quantizer(i).out_proj(latents[..., i * d:(i + 1) * d].transpose(1, 2))
             z_q = z_q_i if z_q is None else z_q + z_q_i
         return z_q
 
@@ -202,26 +234,33 @@ class LAC(nn.Module):
             from ..util import resolve_device
 
             device = resolve_device(device)
-        options = (config.compute_dtype, config.conv_impl, config.decoder_compute_dtype)
-        if options != ("float32", "xla", None):
-            raise NotImplementedError(
-                f"codec compute_dtype/conv_impl/decoder_compute_dtype {options}: the port "
-                "runs ('float32', 'xla', None) only; ROADMAP Queue A item 3")
+        for dtype in (config.compute_dtype, config.decoder_compute_dtype):
+            if dtype not in (None, "float32", "bfloat16", "float16"):
+                raise ValueError(f"codec compute dtype must be float32, bfloat16 or float16, "
+                                 f"got {dtype!r}")
         self.config = config
         self.encoder = Encoder(config, device=device)
         self.quantizer = ResidualVectorQuantize(config, device=device)
         self.decoder = Decoder(config, device=device)
 
-    def encode(self, audio: torch.Tensor) -> torch.Tensor:
-        """audio (b, t, 1) fp32 -> codes (b, n_codebooks, t / hop) int64."""
+    def encode(self, audio: torch.Tensor, n_quantizers: Optional[int] = None) -> torch.Tensor:
+        """audio (b, t, 1) fp32 -> codes (b, n_q, t / hop) int64, n_q the
+        first `n_quantizers` codebooks (all by default)."""
         with no_tf32():
             z = self.encoder(audio.transpose(1, 2))
-            return self.quantizer(z)[1]
+            return self.quantizer(z, n_quantizers)[1]
 
     def decode_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """codes (b, n_cb, t / hop) -> waveform (b, t, 1) fp32."""
         with no_tf32():
             return self.decoder(self.quantizer.from_codes(codes)).transpose(1, 2)
+
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """Concatenated per-stage latents (b, t / hop, n_cb * codebook_dim) ->
+        waveform (b, t, 1) fp32 (upstream's decode path: the quantizer's
+        `from_latents`, then the decoder)."""
+        with no_tf32():
+            return self.decoder(self.quantizer.from_latents(latents)).transpose(1, 2)
 
     def codebook_tables(self) -> torch.Tensor:
         return self.quantizer.codebook_tables()

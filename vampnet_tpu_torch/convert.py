@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .modules import LMConfig
-from .util import unflatten_tree
+from .util import flatten_tree, unflatten_tree
 
 _CTRL_PREFIX = "ctrl_encoder.ctrl_encoders."  # upstream's control encoder Linears
 
@@ -85,27 +85,36 @@ def lm_state_dict_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """The port's `VampNetLM` state dict -> a flax-shaped nested dict of fp32
-    numpy arrays (the inverse of `lm_state_dict_from_jax`): 2-D `.weight`s
-    are Dense kernels and go back to (in, out) as `.kernel`; `w_q` goes back
-    to an int8 (in, out) `kernel_q` and `w_scale` to `kernel_scale`."""
+def lm_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's `VampNetLM` state dict -> a flax-shaped nested dict of
+    tensors on their own device (the inverse of `lm_state_dict_from_jax`):
+    2-D `.weight`s are Dense kernels and go back to (in, out) as `.kernel`;
+    `w_q` goes back to an int8 (in, out) `kernel_q` and `w_scale` to
+    `kernel_scale`; float leaves become fp32. Transposed leaves are views:
+    whoever copies them lays them out."""
     tree: Dict = {}
     for key, val in state_dict.items():
         *path, leaf = key.split(".")
+        x = val.detach()
         if leaf == "w_q":
-            leaf, x = "kernel_q", val.detach().cpu().numpy().T
+            leaf, x = "kernel_q", x.T
         else:
-            x = val.detach().to(torch.float32).cpu().numpy()
-        if leaf == "w_scale":
-            leaf = "kernel_scale"
-        elif leaf == "weight" and x.ndim == 2:
-            leaf, x = "kernel", x.T
+            x = x.to(torch.float32)
+            if leaf == "w_scale":
+                leaf = "kernel_scale"
+            elif leaf == "weight" and x.dim() == 2:
+                leaf, x = "kernel", x.T
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(x)
+        node[leaf] = x
     return tree
+
+
+def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """`lm_tree_from_state_dict` as contiguous numpy arrays on the host."""
+    return unflatten_tree({p: np.ascontiguousarray(x.cpu().numpy())
+                           for p, x in flatten_tree(lm_tree_from_state_dict(state_dict)).items()})
 
 
 def codec_state_dict_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:

@@ -143,18 +143,12 @@ class Interface:
         """The JAX package's file-based `Interface(...)`: the codec and the
         LMs from `.vtpu` or upstream `.pth` files, each LM with an optional
         LoRA-only overlay. LM weights are stored bf16, the codec fp32, as in
-        `from_modules`. `codec_overrides` may only restate the port's
-        defaults: its other codec schedules are not ported."""
+        `from_modules`. `codec_overrides` sets the codec's runtime options
+        (`conv_impl`, `compute_dtype`, `decoder_compute_dtype`): they change
+        the schedule, never the weights, so any saved codec takes them."""
         device = resolve_device(device)
         if codec_ckpt is None or coarse_ckpt is None:
             raise ValueError("from_checkpoints needs a codec and a coarse checkpoint")
-        default_codec = CodecConfig()
-        changed = {k: v for k, v in (codec_overrides or {}).items()
-                   if getattr(default_codec, k) != v}
-        if changed:
-            raise NotImplementedError(
-                f"codec_overrides {changed}: the codec's compute options are not ported, "
-                "ROADMAP Queue A item 3")
         codec_cfg, codec_tree = load_codec(codec_ckpt)
         codec_cfg = dataclasses.replace(codec_cfg, **(codec_overrides or {}))
         codec = _load(LAC(codec_cfg, device="meta"),

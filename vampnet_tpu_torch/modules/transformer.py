@@ -25,8 +25,11 @@ the JAX stack does; `VampNetLM` passes none, as in JAX. LoRA adapters
 (`lora_r > 0`) sit on w_qs, w_vs, fc, w_1 and w_2 (`modules/lora.py`). With
 `ctrl_dims` the LM takes sketch2sound controls: a `ControlEncoder` (one
 Dense per control, masked per frame, classifier-free-guidance dropout while
-training) adds them to the embedding before the stack. Not ported yet: ring
-attention and remat.
+training) adds them to the embedding before the stack. With `remat` the
+stack recomputes each layer in the backward (`torch.utils.checkpoint`)
+instead of keeping its activations, its dropout masks redrawn from a copy of
+the generator's state at the layer (`_remat_layer`). Not ported yet: ring
+attention.
 """
 from __future__ import annotations
 
@@ -62,7 +65,7 @@ class LMConfig:
     attention_max_distance: int = 128
     attention_impl: str = "auto"  # auto | pallas | xla | ring (ops/attention.py)
     ffn_impl: str = "auto"  # auto | xla | fused; "auto" is the unfused path, as in JAX
-    remat: bool = False  # recompute each layer in the backward; not ported (item 5)
+    remat: bool = False  # recompute each layer in the backward (training memory)
     quantization: Optional[str] = None  # None | "int8" (w8a8 projections)
     ctrl_dims: Optional[Tuple[Tuple[str, int], ...]] = None  # (name, dim) per control
     cfg_dropout_prob: float = 0.2
@@ -248,14 +251,42 @@ class TransformerLayer(nn.Module):
         return x + dropout(y, self.p, generator)
 
 
+def _remat_layer(layer: TransformerLayer, x: torch.Tensor, position_bias: torch.Tensor,
+                 generator: Optional[torch.Generator],
+                 x_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """`layer(x, ...)` under `torch.utils.checkpoint`: the backward recomputes
+    the layer. The recompute draws its dropout masks from a generator of its
+    own, set to the state the caller's generator had before the layer, so it
+    redraws the forward's masks (checkpoint's `preserve_rng_state` covers only
+    the default generators), and the caller's generator ends where it ends
+    without remat."""
+    from torch.utils.checkpoint import checkpoint
+
+    state = None if generator is None else generator.get_state()
+    first = [True]
+
+    def run(x, position_bias):
+        gen = generator
+        if gen is not None and not first[0]:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        first[0] = False
+        return layer(x, position_bias, gen, x_mask)
+
+    return checkpoint(run, x, position_bias, use_reentrant=False, preserve_rng_state=False)
+
+
 class TransformerStack(nn.Module):
     """n_layers layers (`layers_0` holds the bucket table) and a final norm.
     `x_mask` (b, t, t) or (b, 1, t, t), 0 = blocked, reaches every layer's
-    attention; it is turned into the kernels' bool (b, t, t) once here."""
+    attention; it is turned into the kernels' bool (b, t, t) once here. With
+    `cfg.remat`, a forward that records gradients recomputes each layer in the
+    backward."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
         self.n_layers = cfg.n_layers
+        self.remat = cfg.remat
         for i in range(cfg.n_layers):
             self.add_module(f"layers_{i}", TransformerLayer(cfg, i == 0, device=device))
         self.norm = RMSNorm(cfg.embedding_dim, device=device)
@@ -265,8 +296,13 @@ class TransformerStack(nn.Module):
                 x_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if x_mask is not None:
             x_mask = attention_mask(x_mask, x)
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.n_layers):
-            x = getattr(self, f"layers_{i}")(x, position_bias, generator, x_mask)
+            layer = getattr(self, f"layers_{i}")
+            if remat:
+                x = _remat_layer(layer, x, position_bias, generator, x_mask)
+            else:
+                x = layer(x, position_bias, generator, x_mask)
         return self.norm(x)
 
 

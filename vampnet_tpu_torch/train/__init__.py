@@ -1,10 +1,12 @@
 """Training (counterpart of `vampnet_tpu/train/`): the coarse/c2f training
-step and its Noam schedule. The loop, datasets, tracker and checkpoints are
-not ported yet."""
+step and its options, the Noam schedule, the loop (`loop.py`: configs,
+datasets, validation, samples, resume), the datasets (`datasets.py`), the
+tracker (`tracker.py`) and the checkpoint manager (`checkpoints.py`)."""
 from .scheduler import noam_schedule  # noqa: F401
 from .step import (  # noqa: F401
     Optimizer,
     TrainState,
+    lora_filter,
     loss_and_grads,
     loss_and_metrics,
     make_optimizer,
