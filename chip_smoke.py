@@ -100,7 +100,25 @@ Phases, each of which must pass (no failure is caught):
      steps with fp32 and bf16 Adam moments, remat at b=8 and b=16 (K4 40 a
      step) and `encode_microbatch=2`: step ms, peak memory, launches, the
      host's wait on the loader, checkpoint seconds and sizes, validation
-     and sample ms.
+     and sample ms;
+ 15. the entry points and the last single-card modules
+     (`entry_points_phase`, in a temporary directory; it fails if the disk
+     has too little room): K1 and K10 held against their plain versions at
+     a one-chunk group's shapes (b=1 t=862 and (1, 3,448), timed) and at the
+     c2f rows of groups of 1, 2 and 4 chunks; an upstream snapshot (codec,
+     coarse and c2f at LoRA rank 8, a fine-tune, wavebeat, as `.pth`
+     files) converted by `scripts.convert_reference` (stages 1, 2 and 4),
+     the `.vtpu` files serving the `.pth` files' tokens (K1 272, K10 14);
+     `vamp_microbatched` on 40 s (4 coarse chunks, seed array [1234]) at
+     group_chunks 4, 2 and 1 (K1 272 and K10 14 a group; the coarse
+     codebooks within SOLO_BATCHED_BOUND of the one-shot staged run; each
+     run's wall and busy time); one coarse vamp with `save_debug_dumps` (12
+     steps, the same tokens as without); `scripts.exp.experiment` on 2
+     signals (baseline, reconstructed, coarse2fine, 1 sampling step) and
+     `scripts.exp.eval` with the log-mel FAD and with a seeded VGGish on the
+     card (its embeddings against the CPU's, its forward timed);
+     `Interface.to("cpu")` and back, then a request; `hello.main` on the
+     converted models directory and `assets/example.wav`.
 Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernels
 against their plain versions at the serving shapes, the w8a8 kernel also at
 ragged shapes (m 1, 37, 300; k 16, 80, 2,560; n 8, 40, 5,128; bf16 and fp32
@@ -2718,6 +2736,397 @@ def trainer_phase(codec_cfg, sig, kw, n_samples, gen):
     return summary
 
 
+def write_reference_codec(path, codec):
+    """Write a codec as upstream's `lac` saves one, from the port's `LAC`:
+    DAC's nested Sequential names, weight norm as (weight_g, weight_v) with
+    g (C, 1, 1), snake alphas (1, C, 1), the audiotools wrapper with the
+    sample rate in its metadata (the inverse of `codec/convert.py`)."""
+    import torch
+
+    cfg = codec.config
+    flat = {tuple(k.split(".")): v.detach().cpu() for k, v in codec.state_dict().items()}
+    sd = {}
+
+    def wn(p, base):
+        sd[f"{base}.weight_v"] = flat[p + ("v",)]
+        sd[f"{base}.weight_g"] = flat[p + ("g",)].reshape(-1, 1, 1)
+        if p + ("bias",) in flat:
+            sd[f"{base}.bias"] = flat[p + ("bias",)]
+
+    def snake(p, base):
+        sd[f"{base}.alpha"] = flat[p + ("alpha",)].reshape(1, -1, 1)
+
+    def res(p, base):
+        snake(p + ("snake_1",), f"{base}.block.0")
+        wn(p + ("conv_1",), f"{base}.block.1")
+        snake(p + ("snake_2",), f"{base}.block.2")
+        wn(p + ("conv_2",), f"{base}.block.3")
+
+    wn(("encoder", "conv_in"), "encoder.block.0")
+    n_enc, n_dec = len(cfg.encoder_rates), len(cfg.decoder_rates)
+    for i in range(n_enc):
+        p, base = ("encoder", f"block_{i}"), f"encoder.block.{i + 1}"
+        for j in range(3):
+            res(p + (f"res_{j + 1}",), f"{base}.block.{j}")
+        snake(p + ("snake",), f"{base}.block.3")
+        wn(p + ("conv",), f"{base}.block.4")
+    snake(("encoder", "snake_out"), f"encoder.block.{n_enc + 1}")
+    wn(("encoder", "conv_out"), f"encoder.block.{n_enc + 2}")
+    for i in range(cfg.n_codebooks):
+        p, base = ("quantizer", f"quantizers_{i}"), f"quantizer.quantizers.{i}"
+        wn(p + ("in_proj",), f"{base}.in_proj")
+        wn(p + ("out_proj",), f"{base}.out_proj")
+        sd[f"{base}.codebook.weight"] = flat[p + ("codebook",)]
+    wn(("decoder", "conv_in"), "decoder.model.0")
+    for i in range(n_dec):
+        p, base = ("decoder", f"block_{i}"), f"decoder.model.{i + 1}"
+        snake(p + ("snake",), f"{base}.block.0")
+        wn(p + ("conv_t",), f"{base}.block.1")
+        for j in range(3):
+            res(p + (f"res_{j + 1}",), f"{base}.block.{j + 2}")
+    snake(("decoder", "snake_out"), f"decoder.model.{n_dec + 1}")
+    wn(("decoder", "conv_out"), f"decoder.model.{n_dec + 2}")
+    if len(sd) != len(flat):
+        raise AssertionError(f"the codec's {len(flat)} tensors became {len(sd)} entries")
+    torch.save({"state_dict": {k: v.contiguous() for k, v in sd.items()},
+                "metadata": {"kwargs": {"sample_rate": cfg.sample_rate}}}, path)
+
+
+def write_random_vggish(path, gen):
+    """A torchvggish-layout state dict (`features.*`, `embeddings.*`) with
+    He-normal weights, so activations stay of order 1 through the ReLUs, and
+    biases of 0.01 normal, drawn from `gen`."""
+    import torch
+
+    from vampnet_tpu_torch.vggish import VGGish
+
+    sd = {}
+    for k, v in VGGish(device="meta").state_dict().items():
+        x = torch.randn(v.shape, generator=gen)
+        sd[k] = x * (2.0 / math.prod(v.shape[1:])) ** 0.5 if v.dim() > 1 else 0.01 * x
+    torch.save(sd, path)
+
+
+def busy_ms(fn):
+    """The card's busy time over one call of fn: the summed durations of
+    the device activities (kernels, copies, sets) that the profiler's CUDA
+    tracing records, read from its raw events (`profile`'s `key_averages`
+    over tens of thousands of launches takes tens of seconds). Returns (ms,
+    activities)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler saw no device activity")
+    return sum(e.duration_ns() for e in dev) / 1e6, len(dev)
+
+
+def entry_points_phase(codec_cfg, sig, kw, counters, want, n_samples, gen):
+    """Phase 15: the entry points and the last single-card modules at full
+    width, in a temporary directory: an upstream snapshot (`.pth` files; the
+    codec with `codec_weights`, whose decoded audio follows its codes)
+    through `scripts.convert_reference`, its `.vtpu` files served against
+    the `.pth` files; `vamp_microbatched` on 40 s at group_chunks 4, 2 and 1
+    against the one-shot staged run; the sampler's debug dumps;
+    `scripts.exp.experiment` then `scripts.exp.eval` with the log-mel FAD
+    and with VGGish on the card; `Interface.to`; `hello.main` on the
+    converted models directory. Returns the phase's summary and K1 and
+    K10 held against their plain versions at this phase's new shapes."""
+    import importlib
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from vampnet_tpu_torch import hello, registry
+    from vampnet_tpu_torch.audio import AudioSignal
+    from vampnet_tpu_torch.checkpoints import load_codec
+    from vampnet_tpu_torch.codec import LAC
+    from vampnet_tpu_torch.codec.layers import no_tf32
+    from vampnet_tpu_torch.interface import Interface
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.modules.lora import LORA_LEAVES, LORA_R
+    from vampnet_tpu_torch.sampling.debug import save_debug_dumps
+    from vampnet_tpu_torch.scripts.convert_reference import convert_reference
+    from vampnet_tpu_torch.scripts.exp import experiment
+    from vampnet_tpu_torch.scripts.exp.eval import evaluate
+    from vampnet_tpu_torch.util import flatten_tree
+    from vampnet_tpu_torch.vggish import VGGishEmbedder, waveform_to_examples
+
+    t_phase = time.perf_counter()
+    sys.modules["huggingface_hub"] = None  # nothing here may reach the network
+    cfgs = {"coarse": LMConfig.coarse(lora_r=LORA_R), "c2f": LMConfig.c2f(lora_r=LORA_R)}
+    sr, hop = codec_cfg.sample_rate, codec_cfg.hop_length
+    n_layer_calls = want["attention_fwd"]
+    cpu_gen = torch.Generator().manual_seed(SEED + 15)
+    codec = LAC(codec_cfg, device="meta").to_empty(device="cpu")
+    codec.load_state_dict(codec_weights(codec, cpu_gen))
+    summary, seconds = {}, {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def launches():
+        return {name: c.launches for name, c in counters.items()}
+
+    # ---- 15.0: K1 and K10 at the shapes this phase gives them first ----
+    t0 = time.perf_counter()
+    d_head = cfgs["coarse"].embedding_dim // cfgs["coarse"].n_heads
+    t_coarse, t_c2f = math.ceil(10 * sr / hop), math.ceil(3 * sr / hop)
+    n_pred = {k: c.n_predict_codebooks for k, c in cfgs.items()}
+    kernel_checks = {
+        "attention_fwd": {f"b1_t{t_coarse}": check_attention(
+            1, t_coarse, cfgs["coarse"].n_heads, d_head, torch.bfloat16, gen)},
+        "sampler": {f"b1_{t_coarse * n_pred['coarse']}": check_sampler(
+            1, t_coarse * n_pred["coarse"], gen)},
+    }
+    # the c2f rows of a group of 1, 2 and 4 coarse chunks (4, 7, 14 rows)
+    for rows in (4, 7, 14):
+        kernel_checks["attention_fwd"][f"b{rows}_t{t_c2f}"] = check_attention(
+            rows, t_c2f, cfgs["c2f"].n_heads, d_head, torch.bfloat16, gen, timed=False)
+        kernel_checks["sampler"][f"b{rows}_{t_c2f * n_pred['c2f']}"] = check_sampler(
+            rows, t_c2f * n_pred["c2f"], gen)
+    for name, res in kernel_checks.items():
+        for shape, r in res.items():
+            print(f"kernel {name}[{shape}] (phase 15): " + json.dumps(r))
+    seconds["K1 and K10 checks"] = time.perf_counter() - t0
+
+    n_params = sum(v.numel() for cfg in cfgs.values()
+                   for v in VampNetLM(cfg, device="meta").state_dict().values())
+    # the snapshot's fp32 .pth files and their fp32 .vtpu twins, twice (the
+    # fine-tune), the codec; a margin
+    need = 1.25 * 2 * 2 * 4 * n_params
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_points_") as tmp:
+        root = Path(tmp)
+        free = shutil.disk_usage(root).free
+        if free < need:
+            raise AssertionError(f"phase 15 needs {need / 2 ** 30:.1f} GiB free in {root}, "
+                                 f"which has {free / 2 ** 30:.1f} GiB")
+
+        # ---- 15.1: an upstream snapshot, converted by convert_reference ----
+        snap, ft_name = root / "snapshot", "smoke_finetune"
+        (snap / "loras" / ft_name).mkdir(parents=True)
+        timed("write codec.pth", lambda: write_reference_codec(snap / "codec.pth", codec))
+        for name, cfg in cfgs.items():
+            st = lora_state(VampNetLM(cfg, device="meta"), cpu_gen)
+            timed(f"write {name}.pth", lambda: write_reference_lm(snap / f"{name}.pth", st, cfg))
+            ft = {k: (torch.randn(x.shape, generator=cpu_gen) * (
+                      x.shape[0] ** -0.5 if k.endswith("lora_a") else 0.1)
+                      if k.split(".")[-1] in LORA_LEAVES else x) for k, x in st.items()}
+            write_reference_lm(snap / "loras" / ft_name / f"{name}.pth", ft, cfg)
+            del st, ft
+        write_random_wavebeat(snap / "wavebeat.pth", cpu_gen)
+        zoo = timed("convert_reference", lambda: convert_reference(
+            str(snap), out=str(root / "zoo"), device="cuda"))
+        report = (zoo / "CONVERSION_REPORT.md").read_text()
+        _, codec_tree = load_codec(zoo / "codec.vtpu")
+        got = {".".join(k): v for k, v in flatten_tree(codec_tree).items()}
+        if any(not torch.equal(got[k], v) for k, v in codec.state_dict().items()) or \
+                len(got) != len(codec.state_dict()):
+            raise AssertionError("codec.pth -> codec.vtpu changed the codec's weights")
+        summary["convert_reference"] = dict(
+            files=sorted(str(p.relative_to(zoo)) for p in zoo.rglob("*.vtpu")),
+            report_lines=len(report.splitlines()),
+            codec_smoke=[line.strip() for line in report.splitlines() if "distinct" in line])
+        print("convert_reference report:\n" + report)
+
+        # ---- 15.2: the .vtpu files serve the .pth files' tokens ----
+        pth = timed("load .pth interface", lambda: Interface.from_checkpoints(
+            coarse_ckpt=snap / "coarse.pth", coarse2fine_ckpt=snap / "c2f.pth",
+            codec_ckpt=snap / "codec.pth", device="cuda"))
+        pth_codes = record_codes(pth)
+        served_pth, _ = serve("snapshot .pth", lambda i: pth.vamp_e2e(sig, seed=SEED, **kw), 1,
+                              counters, want, n_samples)
+        del pth
+        torch.cuda.empty_cache()
+        vt = timed("load converted .vtpu interface", lambda: Interface.from_checkpoints(
+            coarse_ckpt=zoo / "coarse.vtpu", coarse2fine_ckpt=zoo / "c2f.vtpu",
+            codec_ckpt=zoo / "codec.vtpu", wavebeat_ckpt=zoo / "wavebeat.vtpu", device="cuda"))
+        vt_codes = record_codes(vt)
+        served_vtpu, _ = serve("converted .vtpu", lambda i: vt.vamp_e2e(sig, seed=SEED, **kw), 1,
+                               counters, want, n_samples)
+        if not torch.equal(vt_codes[0], pth_codes[0]):
+            raise AssertionError("the converted .vtpu files give other tokens than the .pth")
+        summary["convert_reference"].update(
+            vtpu_tokens_equal_pth=True, tokens_shape=list(vt_codes[0].shape),
+            distinct_tokens=int(vt_codes[0].unique().numel()),
+            first_tokens=vt_codes[0][0, :, :4].tolist())
+        del vt.codec.decode_codes, pth_codes, vt_codes  # the codec's own decode again
+        summary["served_pth"], summary["served_vtpu"] = served_pth, served_vtpu
+
+        # ---- 15.3: vamp_microbatched on 40 s, 4 coarse chunks ----
+        sig40 = bench_signal(sr, 40.0)
+        z40 = vt.encode(sig40)
+        mask40 = vt.build_mask(z40, periodic_prompt=7, upper_codebook_mask=3, seed=SEED)
+        seeds = np.array([1234], np.uint32)
+        mkw = dict(_sampling_steps=12, c2f_steps=2)
+        t_micro = time.perf_counter()
+        n_chunks = math.ceil(z40.shape[-1] / t_coarse)
+        reset()
+        t0 = time.perf_counter()
+        one_shot = vt.coarse_to_fine(
+            vt.coarse_vamp(z40, mask40, seed=seeds, _sampling_steps=12), mask=mask40,
+            seed=(seeds + np.uint32(0x9E3779B9)).astype(np.uint32)).cpu().numpy()
+        micro = dict(one_shot_wall_ms=(time.perf_counter() - t0) * 1e3,
+                     one_shot_launches=launches(), t_tokens=int(z40.shape[-1]),
+                     coarse_chunks=n_chunks, runs={})
+        n_coarse = cfgs["coarse"].n_codebooks
+        outs = {}
+        for group in (4, 2, 1):
+            n_groups = math.ceil(n_chunks / group)
+            reset()
+            t0 = time.perf_counter()
+            out = vt.vamp_microbatched(z40, mask40, group_chunks=group, seed=seeds,
+                                       **mkw).cpu().numpy()
+            wall = (time.perf_counter() - t0) * 1e3
+            made = launches()
+            per_group = dict(want, attention_fwd=n_layer_calls * n_groups, sampler=14 * n_groups)
+            if made != per_group:
+                raise AssertionError(f"vamp_microbatched group_chunks={group}: launches {made}, "
+                                     f"want {per_group}")
+            if out.shape != tuple(z40.shape) or bool((out == vt.coarse.mask_token).any()):
+                raise AssertionError(f"vamp_microbatched group_chunks={group}: output "
+                                     f"{tuple(out.shape)} or MASK tokens left")
+            busy, n_kernels = busy_ms(lambda: vt.vamp_microbatched(
+                z40, mask40, group_chunks=group, seed=seeds, **mkw).cpu())
+            outs[group] = out
+            coarse_vs_one = token_share(out[:, :n_coarse], one_shot[:, :n_coarse])
+            micro["runs"][f"group_chunks_{group}"] = dict(
+                groups=n_groups, wall_ms=wall, busy_ms=busy, device_activities=n_kernels,
+                launches=made, coarse_share_differing_from_one_shot=coarse_vs_one,
+                all_share_differing_from_one_shot=token_share(out, one_shot))
+            if coarse_vs_one > SOLO_BATCHED_BOUND:
+                raise AssertionError(f"group_chunks={group}: {coarse_vs_one} of the coarse "
+                                     f"tokens differ from the one-shot run")
+        for group in (2, 1):
+            share = token_share(outs[group][:, :n_coarse], outs[4][:, :n_coarse])
+            micro["runs"][f"group_chunks_{group}"]["coarse_share_differing_from_4"] = share
+            if share > SOLO_BATCHED_BOUND:
+                raise AssertionError(f"group_chunks={group}: {share} of the coarse tokens "
+                                     "differ from group_chunks=4")
+        summary["vamp_microbatched"] = micro
+        seconds["vamp_microbatched, 4 runs and 3 profiled"] = time.perf_counter() - t_micro
+        print("vamp_microbatched: " + json.dumps(micro))
+        del outs, one_shot
+
+        # ---- 15.4: the sampler's per-step dumps ----
+        z10 = vt.encode(sig)
+        m10 = vt.build_mask(z10, periodic_prompt=7, upper_codebook_mask=3, seed=SEED)
+        plain = vt.coarse_vamp(z10, m10, seed=SEED + 1)
+        dumped = timed("coarse_vamp with save_debug_dumps", lambda: vt.coarse_vamp(
+            z10, m10, seed=SEED + 1, debug_callback=save_debug_dumps(str(root / "debug"))))
+        steps = sorted(p.name for p in (root / "debug").iterdir())
+        state = np.load(root / "debug" / "step_11" / "state.npz")
+        if steps != sorted(f"step_{i}" for i in range(12)) or not torch.equal(dumped, plain) \
+                or any(not (root / "debug" / s / "state.npz").exists() for s in steps):
+            raise AssertionError(f"debug dumps: {steps}, tokens equal {torch.equal(dumped, plain)}")
+        summary["debug_dumps"] = dict(
+            steps=len(steps), tokens_equal_without=True,
+            pngs=len(list((root / "debug").rglob("*.png"))),
+            arrays={k: list(state[k].shape) for k in state.files})
+
+        # ---- 15.5: experiment, then eval with the log-mel FAD and VGGish ----
+        src = root / "exp_src"
+        src.mkdir()
+        bench_signal(sr, 10.0).write(src / "bench.wav")
+        beat_signal(sr, 10.0).write(src / "clicks.wav")
+        conds = {"baseline": experiment.baseline, "reconstructed": experiment.reconstructed,
+                 "coarse2fine": experiment.coarse2fine,
+                 "steps_1": experiment.num_sampling_steps(1)}
+        exp = timed("experiment", lambda: experiment.run_conditions(
+            vt, [str(src)], root / "exp", conds, max_excerpts=2))
+        fad = {}
+        metrics = timed("eval log-mel", lambda: evaluate(str(exp), device="cuda"))
+        fad["log_mel"] = {m["condition"]: m["frechet"] for m in metrics}
+        stats_mel = (exp / "stats-mel.csv").read_text().splitlines()
+        if len(stats_mel) != 4 or len((exp / "metrics-all.csv").read_text().splitlines()) != 7:
+            raise AssertionError(f"eval CSVs: {stats_mel}")
+        mel = {m["condition"]: [] for m in metrics}
+        for m in metrics:
+            mel[m["condition"]].append(m["mel"])
+        mel = {k: float(np.mean(v)) for k, v in mel.items()}
+        write_random_vggish(root / "vggish.pth", cpu_gen)
+        metrics = timed("eval vggish", lambda: evaluate(
+            str(exp), vggish_ckpt=str(root / "vggish.pth"), device="cuda"))
+        fad["vggish"] = {m["condition"]: m["frechet"] for m in metrics}
+        if not all(np.isfinite(v) for d in fad.values() for v in d.values()):
+            raise AssertionError(f"FAD not finite: {fad}")
+        card_emb = VGGishEmbedder(root / "vggish.pth", device="cuda")
+        cpu_emb = VGGishEmbedder(root / "vggish.pth", device="cpu")
+        examples = waveform_to_examples(sig.samples[0, 0], sr)
+        e_card = card_emb.embed(examples)
+        e_cpu = timed("VGGish on the CPU", lambda: cpu_emb.embed(examples))
+        vggish_err = float(np.abs(e_card - e_cpu).max() / np.abs(e_cpu).max())
+        x_card = torch.from_numpy(examples)[:, None].cuda()
+
+        def vggish_forward():
+            with torch.inference_mode(), no_tf32():
+                return card_emb.model(x_card)
+
+        # fp32 convolutions and products (TF32 off) in other orders
+        if not vggish_err < 1e-3:
+            raise AssertionError(f"VGGish on the card vs the CPU: rel err {vggish_err}")
+        summary["experiment_eval"] = dict(
+            conditions=sorted(conds), files=sorted(p.name for p in (exp / "baseline").iterdir()),
+            mel_mean=mel, fad=fad, stats_mel_csv=stats_mel,
+            reconstructed_below_steps_1=mel["reconstructed"] < mel["steps_1"],
+            vggish_rel_err_card_vs_cpu=vggish_err, vggish_examples=int(examples.shape[0]),
+            vggish_forward_ms=time_ms(vggish_forward))
+        print("experiment and eval: " + json.dumps(summary["experiment_eval"]))
+
+        # ---- 15.6: Interface.to ----
+        for dev in ("cpu", "cuda"):
+            timed(f"Interface.to({dev})", lambda: vt.to(dev))
+            tensors = [*vt.codec.parameters(), *vt.coarse.parameters(), *vt.c2f.parameters(),
+                       vt.codebooks, *vt.beat_tracker.model.model.parameters()]
+            if vt.device.type != dev or any(t.device.type != dev for t in tensors):
+                raise AssertionError(f"Interface.to({dev}) left a tensor elsewhere")
+        summary["served_after_to"], _ = serve(
+            "after to(cpu), to(cuda)", lambda i: vt.vamp_e2e(sig, seed=SEED, **kw), 1,
+            counters, want, n_samples)
+        del vt
+        torch.cuda.empty_cache()
+
+        # ---- 15.7: hello.main on the converted models directory ----
+        os.environ["VAMPNET_MODELS_DIR"] = str(zoo)
+        importlib.reload(registry)
+        asset = AudioSignal("assets/example.wav")
+        reset()
+        out = timed("hello.main", lambda: hello.main(out=str(root / "hello.wav"),
+                                                     device="cuda"))
+        made = launches()
+        wav = AudioSignal(root / "hello.wav")
+        frames = math.ceil(asset.length * sr / asset.sample_rate / hop)
+        if wav.length != frames * hop or not np.isfinite(wav.samples).all() or \
+                made != want:
+            raise AssertionError(f"hello.main wrote {wav.length} samples (want {frames * hop}), "
+                                 f"launches {made}")
+        summary["hello"] = dict(input_samples=asset.length, output_samples=wav.length,
+                                sample_rate=wav.sample_rate, launches=made,
+                                peak=float(np.abs(out.samples).max()))
+    summary["seconds"] = seconds
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print("entry points phase: " + json.dumps(summary))
+    return summary, kernel_checks
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3004,6 +3413,12 @@ def main() -> int:
     # compute options, the step's options ----
     trainer = trainer_phase(codec_cfg, sig, kw, n_samples, gen)
 
+    # ---- 15. the entry points: convert_reference, vamp_microbatched, the
+    # debug dumps, experiment and eval with VGGish, Interface.to, hello ----
+    entry_points, entry_kernels = entry_points_phase(codec_cfg, sig, kw, counters, want,
+                                                     n_samples, gen)
+    micro_runs = entry_points["vamp_microbatched"]["runs"]
+
     def entry(name, source, replaces, res, main="coarse"):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return dict(
@@ -3024,7 +3439,10 @@ def main() -> int:
              max_abs_err_engine_shapes=engine_errs("attention_fwd"),
              max_abs_err_doubled_batch=option_k1["max_abs_err"],
              max_abs_err_trainer_shapes=trainer["max_abs_err_trainer_shapes"]["attention_fwd"],
-             launches_trainer=trainer["launches"]["attention_fwd"]),
+             launches_trainer=trainer["launches"]["attention_fwd"],
+             entry_points_shapes=entry_kernels["attention_fwd"],
+             launches_vamp_microbatched={k: r["launches"]["attention_fwd"]
+                                         for k, r in micro_runs.items()}),
         dict(entry("attention_fwd_masked", "vampnet_tpu_torch/csrc/attention_fwd.cu",
                    "vampnet_tpu/ops/flash_attention.py:93", results["attention_fwd_masked"]),
              also_replaces="without a mask at 896 < t <= 1024: attention_fwd (K1) at t948",
@@ -3042,7 +3460,10 @@ def main() -> int:
              max_abs_err_trainer_shapes=trainer["max_abs_err_trainer_shapes"]["sampler"],
              launches_per_option_request={k: v["launches_per_request"]["sampler"]
                                           for k, v in options["staged"].items()
-                                          if isinstance(v, dict)}),
+                                          if isinstance(v, dict)},
+             entry_points_shapes=entry_kernels["sampler"],
+             launches_vamp_microbatched={k: r["launches"]["sampler"]
+                                         for k, r in micro_runs.items()}),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, replaces, also in (
@@ -3100,6 +3521,7 @@ def main() -> int:
     print("train summary: " + json.dumps(train))
     print("options summary: " + json.dumps(options))
     print("trainer summary: " + json.dumps(trainer))
+    print("entry points summary: " + json.dumps(entry_points))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_util  # noqa: F401  (one torch thread per xdist worker)
 from vampnet_tpu.ops import flash_attention as jfa
 from vampnet_tpu_torch.ops import build
 from vampnet_tpu_torch.ops.flash_attention import (

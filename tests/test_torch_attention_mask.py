@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_util  # noqa: F401  (one torch thread per xdist worker)
 from vampnet_tpu.ops.attention import dot_product_attention as j_dpa
 from vampnet_tpu.ops.flash_attention import flash_attention_with_bias as j_flash
 from vampnet_tpu_torch.ops import attention as tatt

@@ -14,6 +14,7 @@ from pathlib import Path
 import pytest
 import yaml
 
+import test_torch_util  # noqa: F401  (one torch thread per xdist worker)
 from vampnet_tpu import config as jcfg
 from vampnet_tpu_torch import config as tcfg
 

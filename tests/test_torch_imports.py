@@ -1,9 +1,10 @@
 """The port imports nothing that the machine with the card lacks: no JAX, no
 part of the JAX package, none of its serialisation or audio-file modules,
-no `triton`, and none of the serving stack's optional front ends (Gradio,
-sounddevice, blessed, matplotlib) at import time. Also: entry points default
-to the card and refuse to run quietly on the CPU, and `chip_smoke.py` gives
-no result without a card or without the package beside it."""
+no `triton`, none of the serving stack's optional front ends (Gradio,
+sounddevice, blessed, matplotlib) and none of the eval tools' (pandas,
+sklearn, umap) at import time. Also: entry points default to the card and
+refuse to run quietly on the CPU, and `chip_smoke.py` gives no result
+without a card or without the package beside it."""
 import shutil
 import subprocess
 import sys
@@ -12,11 +13,15 @@ from pathlib import Path
 import pytest
 import torch
 
+import test_torch_util  # noqa: F401  (one torch thread per xdist worker)
+
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "vampnet_tpu",
            "msgpack", "yaml", "soundfile", "triton", "huggingface_hub",
            # the serving stack's optional front ends, imported where used
-           "gradio", "gradio_client", "sounddevice", "blessed", "matplotlib")
+           "gradio", "gradio_client", "sounddevice", "blessed", "matplotlib",
+           # the eval and analysis tools' optional packages, imported where used
+           "pandas", "sklearn", "umap")
 
 _IMPORT_ALL = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -62,6 +67,15 @@ def test_port_and_chip_smoke_import_without_jax_or_missing_packages():
         "vampnet_tpu_torch.train." + m
         for m in ("loop", "datasets", "tracker", "checkpoints", "step", "scheduler")}
     assert trainer <= set(names), sorted(trainer - set(names))
+    # the eval modules, the sampler's dumps and the entry points
+    entry = {"vampnet_tpu_torch." + m for m in (
+        "eval", "vggish", "sampling.debug", "hello", "scripts.convert_reference",
+        "scripts.exp.train", "scripts.exp.eval", "scripts.exp.fine_tune",
+        "scripts.exp.experiment", "scripts.exp.export", "scripts.utils.split",
+        "scripts.utils.remove_quiet_files", "scripts.utils.split_long_audio_file",
+        "scripts.utils.stage", "scripts.utils.plots", "scripts.utils.gtzan_embeddings",
+        "scripts.utils.visualize_embeddings", "scripts.utils.xeno_canto_dl")}
+    assert entry <= set(names), sorted(entry - set(names))
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_util  # noqa: F401  (one torch thread per xdist worker)
 from vampnet_tpu_torch.ops import sampler_kernel
 from vampnet_tpu_torch.ops.ffn_kernel import check_args
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_util  # noqa: F401  (one torch thread per xdist worker)
 from test_torch_interface_staged import _pair
 from test_wavebeat import HP, TDsTCN, _click_detector_ckpt, _save_ckpt
 from vampnet_tpu import beats as jbeats

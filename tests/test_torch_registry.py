@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 
+import test_torch_util  # noqa: F401  (one torch thread per xdist worker)
 from vampnet_tpu_torch import registry
 
 

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_util  # noqa: F401  (one torch thread per xdist worker)
 from vampnet_tpu.ops.sampler_kernel import fused_sample_from_logits as j_fused
 from vampnet_tpu.sampling import sample as jsample
 from vampnet_tpu_torch.ops import sampler_kernel as tsk

@@ -4,7 +4,14 @@ shared builders the other `test_torch_*` files use.
 Inputs come from numpy seeds; the JAX function and its port see the same
 arrays. Integer and mask results must be identical; float results are held
 to a tolerance stated at each assertion.
+
+Imported inside a pytest-xdist worker, this module sets torch's intra-op
+threads to the worker's share of the cores: every port test file imports
+it, so workers do not each spin a full set of OpenMP threads on the same
+cores.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +31,9 @@ from vampnet_tpu_torch import util as tutil
 from vampnet_tpu_torch.codec import CodecConfig
 from vampnet_tpu_torch.modules import LMConfig
 from vampnet_tpu_torch.modules.activations import new_gelu, snake
+
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(max(1, os.cpu_count() // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 # tiny shapes (the multichip dry run's sizes): hop 32 at 16 kHz, 4 codebooks
 # of 64 entries; 4 heads of width 16, 2 layers

@@ -222,6 +222,15 @@ class WaveBeat(BeatTracker):
             return
         self.model = WaveBeatModel(cfg, state, self.device)
 
+    def to(self, device) -> "WaveBeat":
+        """Move the model's forward to `device`."""
+        from .util import resolve_device
+
+        self.device = resolve_device(device)
+        if self.model is not None:
+            self.model.to(self.device)
+        return self
+
     def extract_beats(self, signal: AudioSignal) -> Tuple[np.ndarray, np.ndarray]:
         if self.model is not None:
             return self.model.predict_beats_from_array(

@@ -14,10 +14,12 @@ The machine with the card has no `yaml`, so this module reads and writes the
 YAML subset that the repo's configs and CLI values use, with PyYAML's
 `safe_load` semantics (YAML 1.1 scalars): a top-level mapping of
 `key: value`; comments; scalars (int, float, bool, null, plain and quoted
-strings); flow lists `[a, b]` and block lists `- item` of scalars. Anything
-else (nested mappings, anchors, tags, block scalars, hex, octal and
-sexagesimal numbers, timestamps, multi-line scalars) raises `ValueError`
-naming the line, rather than being guessed at.
+strings); flow lists `[a, b]` of scalars and block lists `- item` of scalars
+or of such flow lists (fine_tune's `AudioLoader.sources`, a list of lists,
+is written `- [a, b]`, which `yaml.safe_load` reads as PyYAML's `- - a`
+layout). Anything else (nested mappings, anchors, tags, block scalars,
+hex, octal and sexagesimal numbers, timestamps, multi-line scalars) raises
+`ValueError` naming the line, rather than being guessed at.
 """
 from __future__ import annotations
 
@@ -221,7 +223,7 @@ def loads(text: str) -> Dict[str, Any]:
                     raise _Refused("list items at different indentations")
                 if data[list_key] is None:
                     data[list_key] = []
-                data[list_key].append(None if body == "-" else _scalar(body[2:]))
+                data[list_key].append(None if body == "-" else _value(body[2:]))
                 continue
             if indent != 0:
                 raise _Refused("an indented line that is not a list item "
@@ -272,7 +274,8 @@ def _dump_scalar(x: Any) -> str:
 
 def dumps(data: Dict[str, Any], sort_keys: bool = True) -> str:
     """A flat dict of scalars and lists of scalars -> YAML in block style, as
-    `yaml.safe_dump(data, default_flow_style=False)` lays it out."""
+    `yaml.safe_dump(data, default_flow_style=False)` lays it out; a list's
+    item that is a flat list is written as a flow list."""
     lines = []
     for key in (sorted(data) if sort_keys else data):
         val = data[key]
@@ -283,9 +286,15 @@ def dumps(data: Dict[str, Any], sort_keys: bool = True) -> str:
                 continue
             lines.append(f"{k}:")
             for item in val:
-                if isinstance(item, (list, tuple, dict)):
+                if isinstance(item, (list, tuple)):  # a flat flow list
+                    if any(isinstance(x, (list, tuple, dict)) for x in item):
+                        raise ValueError(f"{key}: nested containers are outside the YAML "
+                                         "subset")
+                    lines.append("- [" + ", ".join(_dump_scalar(x) for x in item) + "]")
+                elif isinstance(item, dict):
                     raise ValueError(f"{key}: nested containers are outside the YAML subset")
-                lines.append(f"- {_dump_scalar(item)}")
+                else:
+                    lines.append(f"- {_dump_scalar(item)}")
         else:
             lines.append(f"{k}: {_dump_scalar(val)}")
     return "\n".join(lines) + "\n" if lines else "{}\n"

@@ -284,6 +284,21 @@ class Interface:
         before each vamp)."""
         self.coarse.chunk_size_s = chunk_size_s
 
+    def to(self, device) -> "Interface":
+        """Move the codec, both LMs, the codebook tables and the beat
+        tracker to `device` (the JAX package only records the device, since
+        JAX places arrays itself). Returns the Interface."""
+        device = resolve_device(device)
+        self.codec.to(device)
+        for lm in (self.coarse, self.c2f):
+            if lm is not None:
+                lm.to(device)
+        self.codebooks = self.codebooks.to(device)
+        if self.beat_tracker is not None:
+            self.beat_tracker.to(device)
+        self.device = device
+        return self
+
     # ---------- codec ----------
 
     def _preprocess(self, signal: AudioSignal) -> AudioSignal:
@@ -510,6 +525,7 @@ class Interface:
         cfg_guidance: Optional[float] = None,
         sampler_impl: str = "auto",
         row_key_offset: Optional[int] = None,
+        debug_callback: Optional[Callable] = None,
     ) -> torch.Tensor:
         """MaskGIT over chunk rows with `lm`, the T5 bias built once for the
         chunk length. Randomness comes from `generator`, or from per-request
@@ -519,7 +535,8 @@ class Interface:
         `row_key_offset`) where a request has several chunk rows or an
         offset is given, and used as they are otherwise. `top_k` goes to the
         sampler kernel; `cfg_guidance` appends one unconditional row per row
-        (`generate`)."""
+        (`generate`). `debug_callback` goes to `generate`
+        (`sampling/debug.py`)."""
         if sampler_impl != "auto":
             raise NotImplementedError(
                 f"sampler_impl={sampler_impl!r}: the port has one sampler, the fused "
@@ -557,6 +574,7 @@ class Interface:
             typical_min_tokens=int(typical_min_tokens), top_k=top_k, top_p=expand(top_p),
             sample_cutoff=expand(sample_cutoff), row_keys=row_keys,
             cfg_guidance=None if cfg_guidance is None else float(cfg_guidance),
+            debug_callback=debug_callback,
         )
 
     @torch.inference_mode()
@@ -677,6 +695,53 @@ class Interface:
             return zv, mask_z.cpu().numpy()
         return zv
 
+    def vamp_microbatched(self, codes, mask, group_chunks: int = 2, seed=None, **kwargs):
+        """The two-stage vamp streamed in groups of `group_chunks` coarse
+        chunks: each group runs coarse_vamp, then coarse_to_fine, and the
+        next group's stages queue behind them on the card's one stream (no
+        synchronize between groups). The JAX package overlaps the stages of
+        consecutive groups on disjoint slices of a pipeline mesh; on one
+        card they run in turn, as they do on one JAX mesh.
+
+        Each request draws from its own seed: a seed array (b,) as given,
+        else b seeds from `np.random.default_rng(seed)`; the fine stage
+        takes the seeds + 0x9E3779B9 (wrapping uint32). Chunk keys fold the
+        global chunk index (`row_key_offset`), so the coarse codebooks do
+        not depend on `group_chunks`. The c2f stage windows each group from
+        its own start, so the whole output is the same for every grouping
+        only where a group's length is a multiple of the c2f chunk.
+        `c2f_steps` (default 2) sets the fine stage's steps."""
+        z, mask = self._tensor(codes), self._tensor(mask)
+        b, _, t = z.shape
+        chunk_len = self.s2t(self.coarse.chunk_size_s)
+        glen = group_chunks * chunk_len
+        f_len = self.s2t(self.c2f.chunk_size_s) if self.c2f is not None else 0
+
+        if seed is not None and np.ndim(seed) > 0:
+            seeds_coarse = np.asarray(seed, dtype=np.uint32)
+        else:
+            rng = np.random.default_rng(seed)
+            seeds_coarse = rng.integers(0, 2**31 - 1, size=b).astype(np.uint32)
+        seeds_c2f = (seeds_coarse + np.uint32(0x9E3779B9)).astype(np.uint32)
+
+        c2f_steps = kwargs.pop("c2f_steps", 2)
+        c2f_kwargs = {k: v for k, v in kwargs.items() if k in _C2F_KWARGS}
+        outs = []
+        f_off = 0
+        for g0 in range(0, t, glen):
+            g1 = min(t, g0 + glen)
+            zg, mg = z[:, :, g0:g1], mask[:, :, g0:g1]
+            cv = self.coarse_vamp(zg, mg, seed=seeds_coarse, row_key_offset=g0 // chunk_len,
+                                  chunked=True, **kwargs)
+            if self.c2f is not None:
+                cv = self.coarse_to_fine(
+                    cv, mask=mg, seed=seeds_c2f, row_key_offset=f_off,
+                    typical_filtering=kwargs.get("typical_filtering", True),
+                    _sampling_steps=c2f_steps, **c2f_kwargs)
+                f_off += math.ceil((g1 - g0) / f_len)
+            outs.append(cv)
+        return torch.cat(outs, dim=-1)
+
     @torch.inference_mode()
     def vamp_e2e(
         self,
@@ -765,3 +830,18 @@ class Interface:
         if out.dtype == np.int16:
             out = out.astype(np.float32) * (1.0 / 32767.0)
         return AudioSignal(out.transpose(0, 2, 1), self.codec_config.sample_rate)
+
+    # ---------- utilities ----------
+
+    def visualize_codes(self, z):
+        """A matplotlib figure of the first row's codes (codebook by
+        step)."""
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure(figsize=(10, 7))
+        fig.add_subplot(2, 1, 1)
+        plt.imshow(self._tensor(z)[0].cpu().numpy(), aspect="auto", origin="lower",
+                   cmap="tab20", interpolation="none")
+        plt.title("codes")
+        plt.ylabel("codebook index")
+        return fig

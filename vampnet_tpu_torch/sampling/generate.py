@@ -86,6 +86,7 @@ def generate(
     ctrls: Optional[Dict[str, torch.Tensor]] = None,
     ctrl_masks: Optional[Dict[str, torch.Tensor]] = None,
     cfg_scale: float = 3.0,
+    debug_callback: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Run the MaskGIT loop; returns sampled codes (b, n_codebooks, t).
 
@@ -98,7 +99,11 @@ def generate(
     re-masking noise; with `row_keys` ((b, 2) int64 on the tokens' device)
     it is not used. A (b, t) mask applies to every codebook. `ctrls` and
     `ctrl_masks` map each control's name to (b', t, dim) and (b', t), one
-    row per row of the batch the forward runs."""
+    row per row of the batch the forward runs. `debug_callback(step,
+    z_masked, sampled, mask, selected_probs, num_to_mask)`, where given, gets
+    each step's state as host numpy arrays (int32 tokens and mask, as the
+    JAX function hands them over; `sampling/debug.py`); without one the loop
+    copies nothing to the host."""
     z = start_tokens.to(torch.int64)
     dev = z.device
     nb, n_cb, t = z.shape
@@ -191,6 +196,11 @@ def generate(
              codebook_unflatten(torch.where(new_mask, mask_token, sampled), n_infer)],
             dim=1,
         )
+        if debug_callback is not None:
+            debug_callback(i, *(x.cpu().numpy() for x in (
+                z_masked.to(torch.int32), codebook_unflatten(sampled, n_infer).to(torch.int32),
+                codebook_unflatten(new_mask.to(torch.int32), n_infer), selected_probs,
+                num_to_mask[:, 0].to(torch.int32))))
 
     out = torch.cat([z[:, :ncc, :], codebook_unflatten(sampled, n_infer)], dim=1)
     return out[:nb]

@@ -178,19 +178,25 @@ class UnloopBridge:
         return audio_files
 
 
-def main(vampnet_url: Optional[str] = None, ip: str = "127.0.0.1", s_port: int = 8003,
-         r_port: int = 8001, device: str = "cuda"):  # pragma: no cover - entry point
-    """Serve the bridge until interrupted: against the Gradio app at
-    `vampnet_url`, else against the models directory's models on `device`
-    (the JAX package reads these settings from its config file)."""
+def main(argv=None):
+    """Serve the bridge until interrupted, its settings read through
+    `config.parse_args` as the JAX package reads them: against the Gradio
+    app at `--vampnet_url`, else against the models directory's models on
+    `--device` (the card by default); `--ip`, `--s_port`, `--r_port`."""
+    from .. import config as cfglib
+
+    args = cfglib.parse_args(argv)
+    vampnet_url = args.get("vampnet_url")
     interface = None
     if vampnet_url is None:
         from ..interface import Interface
 
-        interface = Interface.default(device=device)
-    bridge = UnloopBridge(ip=ip, s_port=s_port, r_port=r_port, interface=interface,
+        interface = Interface.default(device=args.get("device", "cuda"))
+    bridge = UnloopBridge(ip=args.get("ip", "127.0.0.1"), s_port=int(args.get("s_port", 8003)),
+                          r_port=int(args.get("r_port", 8001)), interface=interface,
                           vampnet_url=vampnet_url)
     bridge.osc_manager.start_server()
+    return bridge
 
 
 if __name__ == "__main__":  # pragma: no cover

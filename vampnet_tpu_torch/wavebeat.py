@@ -247,6 +247,11 @@ class WaveBeatModel:
                                     for k, v in state_dict.items()})
         self.model.requires_grad_(False).eval()
 
+    def to(self, device) -> "WaveBeatModel":
+        self.device = resolve_device(device)
+        self.model.to(self.device)
+        return self
+
     @classmethod
     def from_checkpoint(cls, path, device="cuda") -> "WaveBeatModel":
         """A `.vtpu` (either package's) or a Lightning `.pth`/`.ckpt` file."""
