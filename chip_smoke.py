@@ -118,7 +118,28 @@ Phases, each of which must pass (no failure is caught):
      `scripts.exp.eval` with the log-mel FAD and with a seeded VGGish on the
      card (its embeddings against the CPU's, its forward timed);
      `Interface.to("cpu")` and back, then a request; `hello.main` on the
-     converted models directory and `assets/example.wav`.
+     converted models directory and `assets/example.wav`;
+ 16. multi-device inference on one card (`multi_device_phase`): every
+     sharded path over a mesh that repeats `cuda:0`, at full width on fresh
+     random weights. First the kernels at the shapes these paths give them,
+     against their plain versions: K1 at h = 10 and 5 heads (tp 2, 4), K11
+     at a shard's f = 1,280 and 640 GEGLU units with and without the
+     residual, K12 at the shards' q/k/v and w_1 widths (bit for bit), ring
+     attention (K2/K4 once per query shard and ring step, merged by lse)
+     against K9 over the whole 40 s sequence at sp 4 and 8 with fp32 and
+     bf16 bias, K10 at the gathered sp logits. Then, each path run once
+     with every count at 0 (its launches exact) and once profiled:
+     `shard(tp=2)` and `shard(tp=4)` on bf16, the fused FFN and int8 (a
+     10 s `vamp`, batch 2; one coarse forward's logits against the
+     unsharded LM's, int8 bit for bit; tokens against the unsharded run,
+     int8 within 0.02); `shard(tp=1)` at dp 2 and 4 with
+     `VampEngine(data_parallel=True)` over 8 requests (one group; each
+     request within 0.02 of its solo per-row-seed run); `shard_pipeline`
+     over 4 positions with `vamp_microbatched` on 40 s at group_chunks 2
+     (within 0.02 of the unplaced run); `shard(sp=4)` and `shard(sp=8)` with
+     the chunk-free greedy coarse vamp on 40 s (3,445 tokens padded to
+     3,584 and 4,096), against the whole-sequence greedy generate (K9).
+     Launches, wall and busy ms of each path print beside the card.
 Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernels
 against their plain versions at the serving shapes, the w8a8 kernel also at
 ragged shapes (m 1, 37, 300; k 16, 80, 2,560; n 8, 40, 5,128; bf16 and fp32
@@ -3127,6 +3148,472 @@ def entry_points_phase(codec_cfg, sig, kw, counters, want, n_samples, gen):
     return summary, kernel_checks
 
 
+def check_ffn_shard(m, d, tp, gen):
+    """The fused-FFN kernels at a tensor-parallel shard's shape (f = 2d/tp
+    GEGLU units: w1 (2f, d), w2 (d, f)), with the residual (shard 0) and
+    without it (the others), against their plain version; timed without the
+    residual against cuBLAS's two products of the same shard."""
+    import torch
+    import torch.nn.functional as F
+
+    from vampnet_tpu_torch.ops.ffn_kernel import block_n, fused_geglu_ffn, fused_geglu_ffn_plain
+
+    dev = "cuda"
+    f = 2 * d // tp
+    x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+    nw = (1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)).to(torch.bfloat16)
+    w1 = (torch.randn((2 * f, d), generator=gen, device=dev) / d ** 0.5).to(torch.bfloat16)
+    w2 = (torch.randn((d, f), generator=gen, device=dev) / (2 * d) ** 0.5).to(torch.bfloat16)
+    errs = {}
+    for residual in (True, False):
+        out = fused_geglu_ffn(x, nw, w1, w2, residual=residual)
+        again = fused_geglu_ffn(x, nw, w1, w2, residual=residual)
+        ref = fused_geglu_ffn_plain(x, nw, w1, w2, residual=residual)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"fused FFN shard m={m} d={d} f={f}: two calls differ")
+        err = (out.float() - ref.float()).abs()
+        # as check_ffn: bf16 output, y and g rounded at the same places
+        if bool((err > 2e-2 + 2e-2 * ref.float().abs()).any()):
+            raise AssertionError(f"fused FFN shard m={m} d={d} f={f} residual={residual} "
+                                 f"disagrees: max abs err {float(err.max())}")
+        errs["residual" if residual else "partial"] = float(err.max())
+    h = torch.randn((m, f), generator=gen, device=dev).to(torch.bfloat16)
+    io_bytes = 2 * m * d * 2 + d * 2 + 3 * f * d * 2
+    ops = 2 * m * d * 3 * f
+    tb, tf = io_bytes / H100_BYTES_PER_S, ops / H100_BF16_FLOPS
+    return dict(
+        max_abs_err=max(errs.values()), max_abs_err_by_residual=errs,
+        shape=f"m={m} d={d} f={f} (tp={tp})", block_n=list(block_n(m, d, f=f)),
+        ms=time_ms(lambda: fused_geglu_ffn(x, nw, w1, w2, residual=False)),
+        plain_ms=time_ms(lambda: fused_geglu_ffn_plain(x, nw, w1, w2, residual=False), reps=5),
+        library_ms=None,
+        products_ms=time_ms(lambda: (F.linear(x, w1), F.linear(h, w2))),
+        products_note="cuBLAS's bf16 F.linear for the shard's w_1 and w_2",
+        bound_ms=1e3 * max(tb, tf), bound_by="bytes" if tb >= tf else "operations",
+    )
+
+
+# Bounds of phase 16's checks, set at 2-3x the readings on the card (PERF.md,
+# the multi-device findings), each shown in every run to fail a planted
+# fault (`planted_ring_fault`, the bias heads rolled between tp shards).
+RING_REL_BOUND = 1e-2     # ring vs K9, relative rms error of a query shard
+TP_LOGITS_BOUND = 5e-2    # tp vs unsharded logits, relative error (bf16, fused)
+SP_LOGITS_BOUND = 3e-2    # RingStack vs whole-sequence logits, per time shard
+
+
+def shard_rel_err(x, ref, n, dim=1):
+    """The largest relative error (`rel_err`) of the n equal blocks of x
+    along `dim` (the time shards) against ref's: a fault confined to one
+    shard is not averaged away over the others."""
+    return max(rel_err(a, b) for a, b in zip(x.chunk(n, dim=dim), ref.chunk(n, dim=dim)))
+
+
+@contextlib.contextmanager
+def planted_ring_fault(n, kind):
+    """A planted fault in every ring attention call over n shards inside the
+    block: "dropped_block" leaves one block out of the lse merge (query
+    shard 0's at ring step 1, the keys of shard 1); "lse_layout" reads each
+    block's (b h, tl) lse as (b, tl, h), misweighting every block. A check
+    that passes one is blind to it."""
+    from vampnet_tpu_torch.ops import ring_attention as ra
+
+    real, calls = ra._merge, [0]
+
+    def merge(state, out, lse):
+        calls[0] += 1
+        if kind == "dropped_block":
+            return state if (calls[0] - 1) % (n * n) == n else real(state, out, lse)
+        b, tl, h, _ = out.shape
+        return real(state, out, lse.reshape(b, tl, h).permute(0, 2, 1).reshape(b * h, tl))
+
+    ra._merge = merge
+    try:
+        yield
+    finally:
+        ra._merge = real
+
+
+def check_ring(t, n, bias_dtype, gen, table):
+    """Ring attention (`ops/ring_attention.ring_attention`: one launch of the
+    forward-with-lse kernel, K2/K4, per query shard and ring step, merged by
+    lse in fp32) over n time shards of a (1, t, h, 64) bf16 input on
+    repeated positions of one card, against the long forward (K9) over the
+    whole sequence with the whole (h, t, t) T5 bias from `table` in
+    `bias_dtype`; the ring takes its (h, t/n, t/n) blocks. Held to
+    RING_REL_BOUND in the relative rms error of each query shard, which
+    each planted fault must exceed. Both timed, and
+    the K2/K4 launches of one ring call counted."""
+    import torch
+
+    from vampnet_tpu_torch.modules.transformer import relative_position_bucket
+    from vampnet_tpu_torch.ops.flash_attention import attention_fwd_long, attention_fwd_lse
+    from vampnet_tpu_torch.ops.ring_attention import ring_attention
+
+    dev = "cuda"
+    h = table.shape[1]
+    tl = t // n
+    q, k, v = (torch.randn((1, t, h, 64), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    rel = torch.arange(t, device=dev)[None, :] - torch.arange(t, device=dev)[:, None]
+    bias = table.to(bias_dtype)[relative_position_bucket(rel)].permute(2, 0, 1).contiguous()
+    blocks = {(i, s): bias[:, i * tl:(i + 1) * tl, s * tl:(s + 1) * tl].contiguous()
+              for i in range(n) for s in range(n)}
+    shard = lambda x: [c.contiguous() for c in x.chunk(n, dim=1)]  # noqa: E731
+    qs, ks, vs = shard(q), shard(k), shard(v)
+
+    def ring():
+        return ring_attention(qs, ks, vs, lambda i, s: blocks[(i, s)])
+
+    attention_fwd_lse.launches = 0
+    out = torch.cat(ring(), dim=1)
+    launches = attention_fwd_lse.launches
+    ref = attention_fwd_long(q, k, v, bias)
+    torch.cuda.synchronize()
+    if launches != n * n:
+        raise AssertionError(f"ring attention t={t} n={n}: {launches} K2/K4 launches, want {n * n}")
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError("ring attention produced non-finite values")
+    err = (out.float() - ref.float()).abs()
+    rel = shard_rel_err(out, ref, n)
+    planted = {}
+    for kind in ("dropped_block", "lse_layout"):
+        with planted_ring_fault(n, kind):
+            planted[kind] = shard_rel_err(torch.cat(ring(), dim=1), ref, n)
+    ref_rms = float(ref.float().pow(2).mean().sqrt())
+    print(f"ring attention t={t} sp={n} bias {str(bias_dtype)[6:]}: rms(K9) {ref_rms:.4e}, "
+          f"max abs err {float(err.max()):.4e}, shard rel err {rel:.4e}, planted faults "
+          f"{json.dumps(planted)} (bound {RING_REL_BOUND})")
+    if not rel <= RING_REL_BOUND:
+        raise AssertionError(f"ring attention t={t} n={n} {bias_dtype} disagrees with K9: "
+                             f"shard rel err {rel} (bound {RING_REL_BOUND})")
+    if not min(planted.values()) > RING_REL_BOUND:
+        raise AssertionError(f"ring attention t={t} n={n}: a planted fault passes the bound "
+                             f"{RING_REL_BOUND}: {planted}")
+    io_bytes = 4 * t * h * 64 * 2 + sum(b_.numel() * b_.element_size() for b_ in blocks.values())
+    flops = 4 * h * t * t * 64
+    tb, tf = io_bytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return dict(
+        max_abs_err=float(err.max()), ref_rms=ref_rms, shard_rel_err=rel,
+        shard_rel_err_planted=planted, launches_per_call=launches,
+        shape=f"t={t} sp={n} (blocks {tl}x{tl}) h={h} d=64 bias {str(bias_dtype)[6:]}",
+        ms=time_ms(ring, reps=5), k9_whole_ms=time_ms(lambda: attention_fwd_long(q, k, v, bias),
+                                                      reps=5),
+        bound_ms=1e3 * max(tb, tf), bound_by="bytes" if tb >= tf else "operations",
+    )
+
+
+def multi_device_phase(codec_cfg, gen, card):
+    """Phase 16: multi-device inference on one card, every sharded path over
+    a mesh that repeats `cuda:0`, at full width (coarse 20 layers, 20 heads,
+    d=1280; c2f 16 layers; random weights from `random_state` at fan-in
+    scale, whose activations, scores and T5 bias are O(1) as a trained
+    LM's, so that a fault in a shard moves the logits well past the
+    bounds' rounding): tensor
+    parallel at tp 2 and 4 (bf16, the fused FFN, int8), data parallel at dp
+    2 and 4 through `VampEngine(data_parallel=True)`, the pipeline placement
+    with `vamp_microbatched`, and sequence parallel at sp 4 and 8 on 40 s
+    (the chunk-free coarse vamp on ring attention). Each path's kernel
+    launches, wall and busy ms are printed beside the card; the kernels are
+    held against their plain versions at the shapes these paths give them.
+    Returns (summary, kernel checks by kernel)."""
+    import numpy as np
+    import torch
+
+    from vampnet_tpu_torch.codec import LAC
+    from vampnet_tpu_torch.interface import Interface
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.modules.transformer import position_bias_from_params
+    from vampnet_tpu_torch.ops import flash_attention as fa
+    from vampnet_tpu_torch.ops.ffn_kernel import fused_geglu_ffn
+    from vampnet_tpu_torch.ops.int8_matmul import w8a8_matmul
+    from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits
+    from vampnet_tpu_torch.parallel import make_mesh
+    from vampnet_tpu_torch.sampling.generate import generate
+    from vampnet_tpu_torch.serve import VampEngine, VampRequest
+
+    t_phase = time.perf_counter()
+    coarse_cfg, c2f_cfg = LMConfig.coarse(), LMConfig.c2f()
+    hop, sr = codec_cfg.hop_length, codec_cfg.sample_rate
+    t10 = math.ceil(10 * sr / hop)
+    d, h = coarse_cfg.embedding_dim, coarse_cfg.n_heads
+    counters = {"attention_fwd": fa.flash_attention_with_bias,
+                "attention_fwd_long": fa.attention_fwd_long,
+                "attention_fwd_lse": fa.attention_fwd_lse,
+                "sampler": fused_sample_from_logits, "w8a8_matmul": w8a8_matmul,
+                "fused_geglu_ffn": fused_geglu_ffn}
+    layer_calls = 12 * coarse_cfg.n_layers + 2 * c2f_cfg.n_layers  # 272 a two-stage vamp
+    summary = {"card": card}
+
+    def run(label, fn, want):
+        """fn() once with every count at 0 (its launches must be `want`),
+        then once under the profiler for the busy time."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        made = {k: c.launches for k, c in counters.items()}
+        expect = dict.fromkeys(counters, 0)
+        expect.update(want)
+        if made != expect:
+            raise AssertionError(f"phase 16 {label}: launches {made}, want {expect}")
+        busy, acts = busy_ms(fn)
+        res = dict(wall_ms=wall, busy_ms=busy, device_activities=acts,
+                   launches={k: v for k, v in made.items() if v})
+        print(f"multi-device {label}: " + json.dumps(res) + f"  [{card}]")
+        return out, res
+
+    # ---- 16.0: the kernels at the shapes these paths give them ----
+    checks = {"attention_fwd": {}, "attention_fwd_lse": {}, "w8a8_matmul": {},
+              "fused_geglu_ffn": {}, "sampler": {}}
+    m10 = 2 * t10  # a 2-row coarse request: 2 chunk rows of 862
+    for tp in (2, 4):
+        checks["attention_fwd"][f"tp{tp}"] = dict(
+            check_attention(2, t10, h // tp, d // h, torch.bfloat16, gen),
+            shape=f"b=2 t={t10} h={h // tp} d={d // h} (tp={tp})")
+        checks["fused_geglu_ffn"][f"tp{tp}"] = check_ffn_shard(m10, d, tp, gen)
+        for site, (k, n) in (("qkv", (d, d // tp)), ("w_1", (d, 4 * d // tp))):
+            checks["w8a8_matmul"][f"tp{tp}_{site}"] = dict(
+                check_w8a8(m10, k, n, gen, timed=site == "w_1"),
+                shape=f"m={m10} k={k} n={n} (tp={tp} {site})")
+    table = torch.randn((coarse_cfg.attention_num_buckets, h), generator=gen, device="cuda")
+    t40 = math.ceil(40 * sr / hop)
+    for n in (4, 8):
+        t_pad = -(-t40 // (128 * n)) * 128 * n
+        for dt in (torch.float32, torch.bfloat16):
+            checks["attention_fwd_lse"][f"ring_sp{n}_{str(dt)[6:]}"] = check_ring(
+                t_pad, n, dt, gen, table)
+        checks["sampler"][f"sp{n}"] = dict(
+            check_sampler(1, t_pad * coarse_cfg.n_predict_codebooks, gen),
+            shape=f"b=1 flat={t_pad * coarse_cfg.n_predict_codebooks} (sp={n} gathered)")
+    for kernel, res in checks.items():
+        for shape, r in res.items():
+            print(f"kernel {kernel}[{shape}] (phase 16): " + json.dumps(r) + f"  [{card}]")
+
+    # ---- 16a: tensor parallel ----
+    def build():
+        return Interface.from_modules(
+            codec_cfg, random_state(LAC(codec_cfg, device="meta"), gen),
+            coarse_cfg, random_state(VampNetLM(coarse_cfg, device="meta"), gen, fan_in=True),
+            c2f_cfg, random_state(VampNetLM(c2f_cfg, device="meta"), gen, fan_in=True),
+            device="cuda")
+
+    iface = build()
+    sig = bench_signal(sr, 10.0)
+    codes = iface.encode(sig)
+    mask = iface.build_mask(codes, periodic_prompt=7, upper_codebook_mask=3, seed=0)
+    kw = dict(batch_size=2, seed=SEED, _sampling_steps=12)
+
+    def check_tokens(label, out, ref, bound=None):
+        """The share of tokens that differ from the unsharded run, printed;
+        held to `bound` where one is given. Kept tokens must stay and every
+        token lie in the vocabulary."""
+        out, ref = out.cpu().numpy(), ref.cpu().numpy()
+        share = token_share(out, ref)
+        keep = np.broadcast_to(mask.cpu().numpy() == 0, out.shape)
+        if not (np.array_equal(out[keep], np.broadcast_to(codes.cpu().numpy(), out.shape)[keep])
+                and (out >= 0).all() and (out < coarse_cfg.vocab_size).all()):
+            raise AssertionError(f"phase 16 {label}: kept tokens moved or tokens out of range")
+        print(f"multi-device {label}: {share:.6f} of tokens differ from the unsharded run "
+              f"[{card}]")
+        if bound is not None and share > bound:
+            raise AssertionError(f"phase 16 {label}: {share} of tokens differ (bound {bound})")
+        return share
+
+    def random_codes(t):
+        """(1, n_codebooks, t) coarse tokens drawn from `gen`, a third of
+        them MASK: a logits check's input, with `cb_check`. The served
+        requests are mostly MASK, whose rows are alike, and the random
+        codec's codebooks are 0.02-normal, so that their embeddings are
+        small beside the layers' outputs: on those inputs a fault in the
+        attention's weights barely moves the logits."""
+        z = torch.randint(0, coarse_cfg.vocab_size, (1, coarse_cfg.n_codebooks, t),
+                          generator=gen, device="cuda")
+        masked = torch.rand(z.shape, generator=gen, device="cuda") < 1 / 3
+        return torch.where(masked, coarse_cfg.mask_token, z)
+
+    z_check = random_codes(t10)
+    cb_check = torch.randn((coarse_cfg.n_codebooks, coarse_cfg.vocab_size,
+                            coarse_cfg.latent_dim), generator=gen, device="cuda")
+
+    def check_logits(label, served, exact, tp):
+        """One coarse forward on `z_check` through the placement against
+        the unsharded LM: equal bit for bit where `exact` (int8: the
+        row sites stay whole), else within TP_LOGITS_BOUND relative error
+        (bf16 partial sums rounded per shard). The same forward with the
+        bias heads rolled by h/tp (each shard given another shard's heads)
+        must fail it."""
+        lm, zin, cbs = served.coarse, z_check, cb_check
+        bias = position_bias_from_params(lm, zin.shape[-1])
+        place = served._placement(lm)
+        with torch.inference_mode():
+            want = lm.forward_codes(zin, cbs, position_bias=bias)
+            got = place.forward_codes(zin, cbs, bias)
+            planted = rel_err(place.forward_codes(zin, cbs, bias.roll(h // tp, dims=0)), want)
+        err = rel_err(got, want)
+        print(f"multi-device {label}: logits relative error {err:.3e} against the unsharded "
+              f"forward, {planted:.3e} with the bias heads rolled between shards (bound "
+              f"{TP_LOGITS_BOUND}) [{card}]")
+        if (exact and not torch.equal(got, want)) or err > TP_LOGITS_BOUND:
+            raise AssertionError(f"phase 16 {label}: logits relative error {err} "
+                                 f"(bit for bit: {exact})")
+        if not planted > TP_LOGITS_BOUND:
+            raise AssertionError(f"phase 16 {label}: rolled bias heads give {planted}, within "
+                                 f"the bound {TP_LOGITS_BOUND}")
+        return err, planted
+
+    tp_paths = {}
+    for variant in ("bf16", "fused", "int8"):
+        if variant == "fused":
+            served = fused_interface(iface)
+        elif variant == "int8":
+            iface.to(iface.device)  # drops the tp placement
+            served = iface.quantize()
+        else:
+            served = iface
+        ref, _ = run(f"{variant} unsharded", lambda: served.vamp(codes, mask, **kw),
+                     {"attention_fwd": layer_calls, "sampler": 14,
+                      "fused_geglu_ffn": layer_calls if variant == "fused" else 0,
+                      "w8a8_matmul": 6 * layer_calls if variant == "int8" else 0})
+        for tp in (2, 4):
+            served.shard(mesh=make_mesh(tp=tp, devices=["cuda:0"] * tp))
+            want = {"attention_fwd": layer_calls * tp, "sampler": 14}
+            if variant == "fused":
+                want["fused_geglu_ffn"] = layer_calls * tp
+            if variant == "int8":  # q, k, v, w_1 per shard; fc and w_2 whole
+                want["w8a8_matmul"] = layer_calls * (4 * tp + 2)
+            out, res = run(f"{variant} tp={tp}", lambda: served.vamp(codes, mask, **kw), want)
+            int8 = variant == "int8"
+            res["logits_rel_err"], res["logits_rel_err_bias_heads_rolled"] = check_logits(
+                f"{variant} tp={tp}", served, exact=int8, tp=tp)
+            res["token_share_differing"] = check_tokens(
+                f"{variant} tp={tp}", out, ref, bound=SOLO_BATCHED_BOUND if int8 else None)
+            tp_paths[f"{variant}_tp{tp}"] = res
+        served.to(served.device)
+        if variant == "fused":
+            del served
+    summary["tp"] = tp_paths
+    del iface
+    torch.cuda.empty_cache()
+
+    # ---- 16b: data parallel through the engine ----
+    iface = build()
+    n_req = 8
+    z_np, m_np = codes.cpu().numpy(), mask.cpu().numpy()
+    reqs = [VampRequest(codes=z_np, mask=m_np, seed=100 + i, sampling_steps=12)
+            for i in range(n_req)]
+    solo = [iface.coarse_to_fine(iface.coarse_vamp(codes, mask, seed=np.array([100 + i]),
+                                                   _sampling_steps=12),
+                                 mask=mask, seed=np.array([(100 + i + 0x9E3779B9) & 0xFFFFFFFF]),
+                                 _sampling_steps=2).cpu().numpy() for i in range(n_req)]
+    dp_paths = {}
+    for dp in (2, 4):
+        iface.shard(mesh=make_mesh(tp=1, devices=["cuda:0"] * dp))
+        engine = VampEngine(iface, max_batch=n_req, max_wait_ms=2000.0, data_parallel=True)
+        try:
+            if engine.dp != dp:
+                raise AssertionError(f"engine dp {engine.dp}, mesh dp {dp}")
+            (outs, wall, lat), res = run(
+                f"engine dp={dp}", lambda: engine_run(engine, reqs),
+                {"attention_fwd": layer_calls * dp, "sampler": 14})
+        finally:
+            engine.close()
+        if engine.stats["batches"] != 2:  # one group, twice (the count run, the profile run)
+            raise AssertionError(f"engine dp={dp}: {engine.stats['batches']} groups, want 2")
+        shares = [token_share(o, s) for o, s in zip(outs, solo)]
+        print(f"multi-device engine dp={dp}: batched vs solo token shares {shares}  [{card}]")
+        if max(shares) > SOLO_BATCHED_BOUND:
+            raise AssertionError(f"engine dp={dp}: batched tokens differ from solo: {shares}")
+        res.update(requests=n_req, requests_per_s=n_req / wall,
+                   p50_latency_ms=nearest_rank(lat, 50) * 1e3, max_share_vs_solo=max(shares))
+        dp_paths[f"dp{dp}"] = res
+    summary["dp"] = dp_paths
+
+    # ---- 16c: the pipeline placement and vamp_microbatched ----
+    iface.to(iface.device)
+    sig40 = bench_signal(sr, 40.0)
+    codes40 = iface.encode(sig40)
+    mask40 = iface.build_mask(codes40, periodic_prompt=7, upper_codebook_mask=3, seed=0)
+    seeds = np.array([1234], np.uint32)
+    one = iface.vamp_microbatched(codes40, mask40, group_chunks=2, seed=seeds)
+    iface.shard_pipeline(devices=["cuda:0"] * 4)  # coarse on 3 positions, c2f on 1
+    piped, res = run("pipeline vamp_microbatched group_chunks=2",
+                     lambda: iface.vamp_microbatched(codes40, mask40, group_chunks=2, seed=seeds),
+                     {"attention_fwd": 2 * layer_calls, "sampler": 28})
+    share = token_share(piped.cpu().numpy(), one.cpu().numpy())
+    print(f"multi-device pipeline: {share:.6f} of tokens differ from the unplaced run [{card}]")
+    if share > SOLO_BATCHED_BOUND:
+        raise AssertionError(f"pipeline: {share} of tokens differ from the unplaced run")
+    res.update(token_share_differing=share,
+               coarse_slice=iface._placements["coarse"].mesh.size,
+               c2f_slice=iface._placements["c2f"].mesh.size)
+    summary["pipeline"] = res
+
+    # ---- 16d: sequence parallel, the chunk-free coarse vamp on 40 s ----
+    iface.to(iface.device)
+    det = dict(temperature=1.0, mask_temperature=0.0, typical_filtering=False, sample_cutoff=-1.0)
+    sp_paths = {}
+    n_coarse = coarse_cfg.n_codebooks
+    for n in (4, 8):
+        iface.shard(sp=n, devices=["cuda:0"] * n)
+        t_pad = iface.sp_pad_len(t40)
+        out, res = run(f"sp={n} chunk-free coarse_vamp t={t40} (padded {t_pad})",
+                       lambda: iface.coarse_vamp(codes40, mask40, seed=SEED, _sampling_steps=12,
+                                                 **det),
+                       {"attention_fwd_lse": 12 * coarse_cfg.n_layers * n * n, "sampler": 12})
+        # the same whole-sequence generate on the non-ring LM (K9 over t_pad)
+        lm = iface._coarse_windowed
+        cbs = iface.codebooks[:n_coarse]
+        bias = position_bias_from_params(lm, t_pad)
+        zp = torch.nn.functional.pad(codes40[:, :n_coarse], (0, t_pad - t40))
+        mp = torch.nn.functional.pad(mask40[:, :n_coarse], (0, t_pad - t40), value=1)
+        place = iface._placement(iface.coarse)
+        with torch.inference_mode():
+            whole = generate(lambda zm: lm.forward_codes(zm, cbs, position_bias=bias),
+                             torch.where(mp.bool(), lm.mask_token, zp), mp, lm.mask_token,
+                             torch.Generator("cuda").manual_seed(SEED), sampling_steps=12,
+                             **det)[:, :, :t40]
+            # one forward at the padded length: the ring stack against K9
+            zin = random_codes(t_pad)
+            want = lm.forward_codes(zin, cb_check, position_bias=bias)
+            logits_err = shard_rel_err(place.forward_codes(zin, cb_check), want, n)
+            planted = {}
+            for kind in ("dropped_block", "lse_layout"):
+                with planted_ring_fault(n, kind):
+                    planted[kind] = shard_rel_err(place.forward_codes(zin, cb_check), want, n)
+            del want
+        print(f"multi-device sp={n}: logits relative error {logits_err:.3e} (largest of the "
+              f"{n} time shards) against the whole-sequence forward (K9), planted ring faults "
+              f"{json.dumps(planted)} (bound {SP_LOGITS_BOUND}; one dropped block of {n * n} is "
+              f"check_ring's to catch) [{card}]")
+        if not logits_err <= SP_LOGITS_BOUND:
+            raise AssertionError(f"sp={n}: logits relative error {logits_err} against K9")
+        if not planted["lse_layout"] > SP_LOGITS_BOUND:
+            raise AssertionError(f"sp={n}: a misweighted ring merge gives {planted}, within the "
+                                 f"bound {SP_LOGITS_BOUND}")
+        got = out[:, :n_coarse].cpu().numpy()
+        share = token_share(got, whole.cpu().numpy())
+        keep = mask40[:, :n_coarse].cpu().numpy() == 0
+        if not np.array_equal(got[keep], codes40[:, :n_coarse].cpu().numpy()[keep]):
+            raise AssertionError(f"sp={n}: kept tokens moved")
+        print(f"multi-device sp={n}: {share:.6f} of coarse tokens differ from the whole-"
+              f"sequence unsharded generate (K9, greedy) [{card}]")
+        res.update(t=t40, t_pad=t_pad, shard_tokens=t_pad // n, token_share_vs_whole=share,
+                   logits_rel_err=logits_err, logits_rel_err_planted=planted)
+        sp_paths[f"sp{n}"] = res
+        del bias
+    summary["sp"] = sp_paths
+    iface.to(iface.device)
+    del iface
+    torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print("multi-device phase: " + json.dumps(summary))
+    return summary, checks
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3419,6 +3906,18 @@ def main() -> int:
                                                      n_samples, gen)
     micro_runs = entry_points["vamp_microbatched"]["runs"]
 
+    # ---- 16. multi-device inference on one card: tp, dp (the engine), the
+    # pipeline placement and sp (ring attention) over repeated cuda:0 ----
+    multi, multi_checks = multi_device_phase(codec_cfg, gen, card)
+
+    def multi_launches(name):
+        """The kernel's launches in each phase-16 path that ran it."""
+        return {f"{group}/{path}": r["launches"][name]
+                for group in ("tp", "dp", "sp") for path, r in multi[group].items()
+                if name in r["launches"]} | (
+            {"pipeline": multi["pipeline"]["launches"][name]}
+            if name in multi["pipeline"]["launches"] else {})
+
     def entry(name, source, replaces, res, main="coarse"):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return dict(
@@ -3442,7 +3941,9 @@ def main() -> int:
              launches_trainer=trainer["launches"]["attention_fwd"],
              entry_points_shapes=entry_kernels["attention_fwd"],
              launches_vamp_microbatched={k: r["launches"]["attention_fwd"]
-                                         for k, r in micro_runs.items()}),
+                                         for k, r in micro_runs.items()},
+             multi_device_shapes=multi_checks["attention_fwd"],
+             launches_multi_device=multi_launches("attention_fwd")),
         dict(entry("attention_fwd_masked", "vampnet_tpu_torch/csrc/attention_fwd.cu",
                    "vampnet_tpu/ops/flash_attention.py:93", results["attention_fwd_masked"]),
              also_replaces="without a mask at 896 < t <= 1024: attention_fwd (K1) at t948",
@@ -3463,7 +3964,9 @@ def main() -> int:
                                           if isinstance(v, dict)},
              entry_points_shapes=entry_kernels["sampler"],
              launches_vamp_microbatched={k: r["launches"]["sampler"]
-                                         for k, r in micro_runs.items()}),
+                                         for k, r in micro_runs.items()},
+             multi_device_shapes=multi_checks["sampler"],
+             launches_multi_device=multi_launches("sampler")),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, replaces, also in (
@@ -3484,7 +3987,9 @@ def main() -> int:
             b1_t2048={k: v for k, v in train_k2048[name].items()},
             launches_trainer=trainer["launches"][name],
             max_abs_err_trainer_shapes=trainer["max_abs_err_trainer_shapes"][name],
-            **({"registers": bwd_regs} if name == "attention_bwd_fused" else {}),
+            **({"registers": bwd_regs} if name == "attention_bwd_fused" else
+               {"ring_attention": multi_checks["attention_fwd_lse"],
+                "launches_multi_device": multi_launches("attention_fwd_lse")}),
         ))
     for name, replaces, also in (
         ("attention_fwd_lse_masked", ":254",
@@ -3507,12 +4012,16 @@ def main() -> int:
               "vampnet_tpu/ops/int8_matmul.py:36", results["w8a8_matmul"], main="coarse_w_1"),
         main_shape=f"coarse w_1: m={m_rows['coarse']} k={d_model} n={4 * d_model}",
         launches_per_request=6 * n_layer_calls, registers=w8a8_regs,
-        launches_lora_int8=lora_int8_launches["w8a8_matmul"]))
+        launches_lora_int8=lora_int8_launches["w8a8_matmul"],
+        multi_device_shapes=multi_checks["w8a8_matmul"],
+        launches_multi_device=multi_launches("w8a8_matmul")))
     kernels.append(dict(
         entry("fused_geglu_ffn", "vampnet_tpu_torch/csrc/ffn.cu",
               "vampnet_tpu/ops/ffn_kernel.py:44", results["fused_geglu_ffn"]),
         main_shape=f"coarse: m={m_rows['coarse']} d={d_model}",
-        launches_per_request=n_layer_calls, registers=ffn_regs))
+        launches_per_request=n_layer_calls, registers=ffn_regs,
+        multi_device_shapes=multi_checks["fused_geglu_ffn"],
+        launches_multi_device=multi_launches("fused_geglu_ffn")))
     print("serve summary: " + json.dumps({"bf16": served, "fused_ffn": served_fused,
                                           "int8": served_int8, "long_20s": served_long,
                                           "chunk_11s": served_11}))
@@ -3522,6 +4031,7 @@ def main() -> int:
     print("options summary: " + json.dumps(options))
     print("trainer summary: " + json.dumps(trainer))
     print("entry points summary: " + json.dumps(entry_points))
+    print("multi-device summary: " + json.dumps(multi))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

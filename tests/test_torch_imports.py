@@ -76,6 +76,28 @@ def test_port_and_chip_smoke_import_without_jax_or_missing_packages():
         "scripts.utils.stage", "scripts.utils.plots", "scripts.utils.gtzan_embeddings",
         "scripts.utils.visualize_embeddings", "scripts.utils.xeno_canto_dl")}
     assert entry <= set(names), sorted(entry - set(names))
+    # multi-device inference: meshes, specs, placements, ring attention
+    parallel = {"vampnet_tpu_torch." + m for m in (
+        "parallel", "parallel.mesh", "parallel.partition", "parallel.placement",
+        "ops.ring_attention")}
+    assert parallel <= set(names), sorted(parallel - set(names))
+
+
+_IMPORT_PARALLEL = """
+import torch.distributed as dist
+import vampnet_tpu_torch.parallel, vampnet_tpu_torch.parallel.placement
+import vampnet_tpu_torch.ops.ring_attention
+from vampnet_tpu_torch.parallel import make_mesh, make_sp_mesh
+make_mesh(tp=2, devices=["cpu"] * 4), make_sp_mesh(devices=["cpu"] * 4)
+assert not dist.is_initialized()
+print("ok")
+"""
+
+
+def test_parallel_does_not_start_torch_distributed():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_PARALLEL], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):

@@ -234,8 +234,10 @@ def test_unported_options_raise(interfaces):
     z = torch.zeros((1, 4, 30), dtype=torch.int64)
     m = torch.ones_like(z)
     # top_k, cfg_guidance and the onset mask are ported (tests/test_torch_guidance.py,
-    # tests/test_torch_masks.py); the chunk-free path and per-row mask seeds are not
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    # tests/test_torch_masks.py), the chunk-free path too
+    # (tests/test_torch_sharded_inference.py); it needs shard(sp=) first, as
+    # in JAX, and per-row mask seeds are not taken
+    with pytest.raises(AssertionError, match="shard\\(sp=N\\)"):
         tiface.coarse_vamp(z, m, chunked=False)
     with pytest.raises(NotImplementedError, match="per-row"):
         tiface.build_mask(z, seed=[1, 2])

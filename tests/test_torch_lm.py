@@ -212,5 +212,7 @@ def test_attention_impl_carried_over():
     rstack = ttr.TransformerStack(ttr.LMConfig(**STACK_KW, compute_dtype="float32",
                                                attention_impl="ring"), device="cpu")
     rstack.load_state_dict(stack.state_dict())
-    with pytest.raises(NotImplementedError, match="ring"):
+    # a ring stack runs only inside a RingStack over an sp mesh
+    # (tests/test_torch_ring_attention.py), never as a whole-sequence stack
+    with pytest.raises(RuntimeError, match="ring context"):
         rstack(torch.from_numpy(x), bias)

@@ -312,8 +312,18 @@ def test_engine_close_leaves_no_future_unresolved(interface):
 
 
 def test_engine_data_parallel_is_not_ported(interface):
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    """Data-parallel serving is ported (tests/test_torch_sharded_inference.py);
+    it keeps the JAX engine's refusals: without a prior shard() there is no
+    dp mesh, and an sp interface has none either."""
+    with pytest.raises(AssertionError, match="data_parallel"):
         VampEngine(interface, data_parallel=True)
+    try:
+        interface.shard(sp=2, devices=["cpu"] * 2)
+        with pytest.raises(AssertionError, match="data_parallel"):
+            VampEngine(interface, data_parallel=True)
+    finally:
+        interface.to(interface.device)  # drops the placement
+    assert interface._sp_mesh is None and interface.coarse.config.attention_impl != "ring"
 
 
 # ---------------- OSC ----------------

@@ -2,13 +2,17 @@
 //
 // Port of the Pallas kernel `_ffn_kernel` in vampnet_tpu/ops/ffn_kernel.py:44
 // (`fused_geglu_ffn` :73). For x (m, d) bf16, the RMSNorm scale nw (d,) fp32,
-// w1 (4d, d) and w2 (d, 2d) bf16 in the port's (out, in) layout:
+// w1 (2f, d) and w2 (d, f) bf16 in the port's (out, in) layout, f hidden
+// units (f = 2d for a whole layer):
 //   y   = bf16(x * rsqrt(mean(x^2) + eps) * nw)        (fp32 statistics)
-//   p1  = y w1[0:2d]^T,  p2 = y w1[2d:4d]^T            (fp32 accumulation)
+//   p1  = y w1[0:f]^T,  p2 = y w1[f:2f]^T              (fp32 accumulation)
 //   g   = bf16(p1 * gelu_tanh(p2))                     (fp32, tanhf)
 //   out = bf16(x + g w2^T)                             (fp32 accumulation and add)
 // The first half of w1's rows is the value and the second the gate, as
-// jnp.split of the JAX (d, 4d) kernel's columns.
+// jnp.split of the JAX (d, 4d) kernel's columns. A tensor-parallel shard
+// holds f = 2d / tp units (its block of each half) and w2's matching
+// columns; its output is a partial sum, and without add_x the residual is
+// left out (out = bf16(g w2^T)), so that one shard of the sum adds it.
 //
 // What bounds it: 2 m d 6d operations, 34 us at the coarse serving shape
 // (m = 1,724, d = 1,280) at 989 TFLOP/s, 41 us at c2f (m = 2,072); the
@@ -25,12 +29,12 @@
 //    warp-specialised GEMM over 128 x BN tiles of the hidden width. A
 //    producer warp keeps a ring of stages in flight, each 64 columns of k of
 //    y (128 rows) and of the value rows [f0, f0 + BN) and the gate rows
-//    [2d + f0, 2d + f0 + BN) of w1, brought by TMA with the 128-byte
+//    [f + f0, f + f0 + BN) of w1, brought by TMA with the 128-byte
 //    swizzle (both operands K-major, as the (out, in) layout has them). Two
 //    consumer warpgroups of 64 rows each hold two accumulators of one
 //    layout, so each thread holds p1 and p2 of the same (row, unit) pairs;
 //    the epilogue forms g there and stores it through shared memory to
-//    scratch g (m, 2d) bf16 with the L2 evict_last policy (8.8-10.6 MB at
+//    scratch g (m, f) bf16 with the L2 evict_last policy (8.8-10.6 MB at
 //    the serving shapes, well inside the 50 MB L2). The fp32 pre-activation
 //    never leaves registers;
 //  * ffn_gemm_kernel<BN, false> (the down-projection): the same GEMM over
@@ -172,13 +176,14 @@ struct Plan {
   static_assert(STAGES >= 3 && SMEM <= SMEM_LIMIT, "shared memory plan too large");
 };
 
-// UP: A = y (m, d), B = w1 (4d, d), out = g (m, 2d): n = 2d, k = d.
-// Down: A = g (m, 2d), B = w2 (d, 2d), out (m, d) = bf16(x + g w2^T): n = d,
-// k = 2d.
+// UP: A = y (m, d), B = w1 (2f, d), out = g (m, f): n = f, k = d.
+// Down: A = g (m, f), B = w2 (d, f), out (m, d) = bf16(x + g w2^T) (add_x) or
+// bf16(g w2^T): n = d, k = f.
 template <int BN, bool UP>
 __global__ void __launch_bounds__(THREADS, 1) ffn_gemm_kernel(
     const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
-    const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out, int m, int d) {
+    const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out, int m, int d, int f,
+    int add_x) {
   using P = Plan<BN, UP>;
   constexpr int ST = P::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -188,8 +193,8 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_gemm_kernel(
   auto full = [&](int s) { return bar0 + 8 * s; };
   auto empty = [&](int s) { return bar0 + 8 * (ST + s); };
 
-  const int n = UP ? 2 * d : d;
-  const int k = UP ? d : 2 * d;
+  const int n = UP ? f : d;
+  const int k = UP ? d : f;
   // tiles in column-major order: consecutive blocks share a weight tile
   const int n_rt = (m + BM - 1) / BM;
   const int tiles = n_rt * ((n + BN - 1) / BN);
@@ -229,7 +234,7 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_gemm_kernel(
       coords(it, row0, col0, k0);
       const uint32_t dst = sbase + (it % ST) * P::STAGE + P::A_BYTES;
       tma_load_2d(dst, &tm_b, full(it % ST), k0, col0);
-      // the gate rows sit 2d = n rows further down w1
+      // the gate rows sit f = n rows further down w1
       if constexpr (UP) tma_load_2d(dst + P::B_BYTES, &tm_b, full(it % ST), k0, n + col0);
     };
     // the weights do not depend on the kernel before: the first ring's
@@ -293,7 +298,7 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_gemm_kernel(
       // epilogue: the tile's bf16 values into this warpgroup's buffer, then
       // its rows out 16 bytes a thread, neighbouring threads on neighbouring
       // bytes; rows past m and columns past n are not stored (n is a
-      // multiple of 128, so a 16-byte chunk lies wholly inside or outside)
+      // multiple of 64, so a 16-byte chunk lies wholly inside or outside)
       unsigned char* buf = smem + P::OUT_OFF + cw * 64 * P::OUT_ROW;
       const int row0 = (tile % n_rt) * BM + 64 * cw;
       const int col_t = (tile / n_rt) * BN;
@@ -314,7 +319,7 @@ __global__ void __launch_bounds__(THREADS, 1) ffn_gemm_kernel(
           // out = bf16(x + acc), the add in fp32
           const int col = col_t + c;
           float2 xlo = make_float2(0.f, 0.f), xhi = make_float2(0.f, 0.f);
-          if (col < n) {
+          if (add_x && col < n) {
             if (row0 + lr_lo < m) {
               xlo = __bfloat1622float2(
                   *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)(row0 + lr_lo) * n + col));
@@ -389,12 +394,12 @@ bool bf16_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_row
 
 template <int BN, bool UP>
 int launch_gemm(const void* a, const void* w, const __nv_bfloat16* x, __nv_bfloat16* out, int m,
-                int d, int sms, int device, cudaStream_t s) {
+                int d, int f, int add_x, int sms, int device, cudaStream_t s) {
   using P = Plan<BN, UP>;
-  const int n = UP ? 2 * d : d;
-  const int k = UP ? d : 2 * d;
+  const int n = UP ? f : d;
+  const int k = UP ? d : f;
   CUtensorMap ta, tw;
-  if (!bf16_map(&ta, a, m, k, BM) || !bf16_map(&tw, w, UP ? 4 * d : d, k, BN)) {
+  if (!bf16_map(&ta, a, m, k, BM) || !bf16_map(&tw, w, UP ? 2 * f : d, k, BN)) {
     return (int)cudaErrorInvalidValue;
   }
   // Host threads may launch concurrently (the serving engine's dispatcher
@@ -422,27 +427,28 @@ int launch_gemm(const void* a, const void* w, const __nv_bfloat16* x, __nv_bfloa
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, ffn_gemm_kernel<BN, UP>, ta, tw, x, out, m, d);
+  return (int)cudaLaunchKernelEx(&cfg, ffn_gemm_kernel<BN, UP>, ta, tw, x, out, m, d, f, add_x);
 }
 
 }  // namespace
 
 // The tile width of the up-projection (up != 0) or the down-projection at
-// (m, d) on `device`, or 0 for a device that cannot be read.
-extern "C" int vampnet_geglu_ffn_block_n(int m, int d, int up, int device) {
+// (m, d, f) on `device`, or 0 for a device that cannot be read.
+extern "C" int vampnet_geglu_ffn_block_n(int m, int d, int f, int up, int device) {
   const int sms = sm_count(device);
-  if (sms <= 0 || m <= 0 || d <= 0) return 0;
-  return up ? choose_block_n(UP_BNS, m, 2 * d, sms) : choose_block_n(DOWN_BNS, m, d, sms);
+  if (sms <= 0 || m <= 0 || d <= 0 || f <= 0) return 0;
+  return up ? choose_block_n(UP_BNS, m, f, sms) : choose_block_n(DOWN_BNS, m, d, sms);
 }
 
-// x (m, d) bf16, norm_weight (d,) bf16 (nw_is_bf16) or fp32, w1 (4d, d) and
-// w2 (d, 2d) bf16; y (m, d) and g (m, 2d) bf16 are scratch the caller
-// allocates; out (m, d) bf16. d must be a multiple of 128; x, w1, w2, y and
-// g 16-byte aligned.
+// x (m, d) bf16, norm_weight (d,) bf16 (nw_is_bf16) or fp32, w1 (2f, d) and
+// w2 (d, f) bf16; y (m, d) and g (m, f) bf16 are scratch the caller
+// allocates; out (m, d) bf16, x added where add_x. d must be a multiple of
+// 128 and f of 64; x, w1, w2, y and g 16-byte aligned.
 extern "C" int vampnet_geglu_ffn(const void* x, const void* norm_weight, int nw_is_bf16,
                                  const void* w1, const void* w2, void* y, void* g, void* out,
-                                 int m, int d, float eps, int device, void* stream) {
-  if (m <= 0 || d <= 0 || d % 128) return (int)cudaErrorInvalidValue;
+                                 int m, int d, int f, int add_x, float eps, int device,
+                                 void* stream) {
+  if (m <= 0 || d <= 0 || d % 128 || f <= 0 || f % 64) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int sms = sm_count(device);
@@ -463,15 +469,15 @@ extern "C" int vampnet_geglu_ffn(const void* x, const void* norm_weight, int nw_
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int rc;
-  switch (choose_block_n(UP_BNS, m, 2 * d, sms)) {
-    case 112: rc = launch_gemm<112, true>(yb, w1, xb, gb, m, d, sms, device, s); break;
-    case 128: rc = launch_gemm<128, true>(yb, w1, xb, gb, m, d, sms, device, s); break;
-    default: rc = launch_gemm<160, true>(yb, w1, xb, gb, m, d, sms, device, s); break;
+  switch (choose_block_n(UP_BNS, m, f, sms)) {
+    case 112: rc = launch_gemm<112, true>(yb, w1, xb, gb, m, d, f, 1, sms, device, s); break;
+    case 128: rc = launch_gemm<128, true>(yb, w1, xb, gb, m, d, f, 1, sms, device, s); break;
+    default: rc = launch_gemm<160, true>(yb, w1, xb, gb, m, d, f, 1, sms, device, s); break;
   }
   if (rc != 0) return rc;
   switch (choose_block_n(DOWN_BNS, m, d, sms)) {
-    case 128: return launch_gemm<128, false>(gb, w2, xb, ob, m, d, sms, device, s);
-    case 144: return launch_gemm<144, false>(gb, w2, xb, ob, m, d, sms, device, s);
-    default: return launch_gemm<192, false>(gb, w2, xb, ob, m, d, sms, device, s);
+    case 128: return launch_gemm<128, false>(gb, w2, xb, ob, m, d, f, add_x, sms, device, s);
+    case 144: return launch_gemm<144, false>(gb, w2, xb, ob, m, d, f, add_x, sms, device, s);
+    default: return launch_gemm<192, false>(gb, w2, xb, ob, m, d, f, add_x, sms, device, s);
   }
 }

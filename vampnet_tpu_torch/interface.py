@@ -30,9 +30,28 @@ streams (`sampling/sample.py`), so a request's tokens depend only on its own
 seed. The serving engine (`serve/engine.py`) relies on that. The port does
 not reproduce `jax.random`'s bits, so the JAX package and the port agree
 token for token only where no random draw decides anything.
+
+Several devices (`shard`, `shard_pipeline`; `parallel/`): one process holds
+a mesh and drives all of its devices, as the JAX package's one controller
+does. A mesh may repeat a device (`["cuda:0"] * 4`, `["cpu"] * 8`): each
+sharded path then runs on one device, every kernel at its sharded shapes.
+  * `shard(tp=, mesh=)`: each LM's layers split Megatron-style over the tp
+    axis of a ("dp", "tp") mesh (`TensorParallelStack`) and replicated over
+    dp; a batch whose rows divide by dp splits over the dp groups
+    (`parallel/placement.py`). The logits of every forward meet on the
+    mesh's first device, where the MaskGIT loop samples them (K10) as it
+    does unsharded.
+  * `shard(sp=)`: the coarse LM on a ring-attention twin over an ("sp",)
+    mesh, and `coarse_vamp` generates the whole sequence in one pass
+    (`chunked=False`, the default there), padded to `sp_pad_len`; the c2f
+    LM keeps its windows.
+  * `shard_pipeline()`: coarse on one slice of the devices, c2f and the
+    decode codec on the rest; each stage runs on its slice's first device
+    and hands its codes back to the Interface's device.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from pathlib import Path
@@ -54,6 +73,9 @@ from .modules.transformer import position_bias_from_params
 from .sampling.generate import generate
 from .sampling.sample import fold_in_rows
 from .util import resolve_device, to_device
+
+# the JAX package's default pipeline split: about 3 coarse devices to 1 c2f
+PIPELINE_COARSE_SHARE = 0.75
 
 
 def _load(module: nn.Module, state: Mapping, device: torch.device,
@@ -125,6 +147,16 @@ class Interface:
         self.codec_path: Optional[Path] = None
         self.coarse_path: Optional[Path] = None
         self.c2f_path: Optional[Path] = None
+        # multi-device state (`shard`, `shard_pipeline`): the ("dp", "tp")
+        # mesh (the coarse slice's under a pipeline), the sp mesh, the
+        # placements by LM, the non-ring coarse twin under sp, and the codec
+        # on the c2f slice
+        self._mesh = None
+        self._sp_mesh = None
+        self._pipeline = False
+        self._placements: Dict[str, Any] = {}
+        self._coarse_windowed: Optional[VampNetLM] = None
+        self._codec_decode: Optional[LAC] = None
 
     @classmethod
     def from_checkpoints(
@@ -210,8 +242,10 @@ class Interface:
         """Swap LM checkpoints in. A path equal to the loaded one loads
         nothing. A swapped LM keeps the chunk size and takes its file's
         config, so after `quantize()` it is bf16 again, as in the JAX
-        package."""
+        package. A swapped LM arrives unplaced: a `shard(sp=)` is left, and
+        a pipeline placement is dropped (call `shard_pipeline()` again)."""
         if coarse_ckpt is not None and self.coarse_path != Path(coarse_ckpt):
+            self._leave_sp()
             lm = _lm_from_file(coarse_ckpt, None, self.device)
             lm.chunk_size_s = self.coarse.chunk_size_s
             self.coarse, self.coarse_path = lm, Path(coarse_ckpt)
@@ -219,6 +253,12 @@ class Interface:
             lm = _lm_from_file(c2f_ckpt, None, self.device)
             lm.chunk_size_s = self.c2f.chunk_size_s if self.c2f is not None else 3
             self.c2f, self.c2f_path = lm, Path(c2f_ckpt)
+        self._forget_stale()
+        if self._pipeline and (self._placement(self.coarse) is None
+                               or self._placement(self.c2f) is None):
+            # a swapped model arrived unplaced: leave pipeline mode rather
+            # than run one stage off its slice; shard_pipeline() places again
+            self._drop_pipeline()
 
     @classmethod
     def from_modules(cls, codec_cfg: CodecConfig, codec_params: Mapping,
@@ -248,7 +288,10 @@ class Interface:
         embeddings and the classifier stay bf16. Tokens may differ slightly
         from the bf16 path. The weights are quantized from the bf16-stored
         ones, as the JAX package does, and the bf16 kernels they replace are
-        dropped. An LM already int8 is left as it is."""
+        dropped. An LM already int8 is left as it is. Call it before
+        `shard()` or `shard_pipeline()`: the int8 LMs are unplaced (a
+        `shard(sp=)` is left, a pipeline dropped)."""
+        self._leave_sp()
         for name in ("coarse", "c2f"):
             lm = getattr(self, name)
             if lm is None or lm.config.quantization == "int8":
@@ -262,6 +305,156 @@ class Interface:
             lm.chunk_size_s = chunk_size_s
             setattr(self, name, lm)
             del state
+        self._forget_stale()
+        if self._pipeline:
+            # the new LMs are unplaced: call shard_pipeline() again after quantize()
+            self._drop_pipeline()
+        return self
+
+    # ---------- several devices ----------
+
+    def _placement(self, lm):
+        """The placement `lm` runs under, or None (unplaced, or swapped out
+        since it was placed)."""
+        return next((p for p in self._placements.values() if p.lm is lm), None)
+
+    def _stage_device(self, lm) -> torch.device:
+        """Where `lm`'s MaskGIT loop runs: its placement's first device."""
+        place = self._placement(lm)
+        return place.device if place is not None else self.device
+
+    def _forget_stale(self):
+        """Drop the placements of LMs that were swapped out (they hold the
+        old weights' shards)."""
+        self._placements = {k: p for k, p in self._placements.items()
+                            if p.lm is self.coarse or p.lm is self.c2f}
+
+    def _drop_pipeline(self):
+        """Unwind `shard_pipeline`: no placement, no mesh, the decode codec
+        back on the Interface's device, so a later data-parallel engine fails
+        until the Interface is placed again."""
+        self._placements = {}
+        self._pipeline = False
+        self._codec_decode = None
+        self._mesh = None
+
+    def _leave_sp(self):
+        """Restore the non-ring coarse LM of an earlier `shard(sp=)`."""
+        if self._coarse_windowed is not None:
+            self.coarse = self._coarse_windowed
+            self._coarse_windowed = None
+        self._sp_mesh = None
+
+    def shard(self, mesh=None, tp: int = 1, sp: int = 1, devices=None) -> "Interface":
+        """Place the LMs over several devices for inference (the JAX
+        package's three axes):
+          * "tp": tensor parallel; each LM's layers split Megatron-style
+            over the mesh's tp axis (`TensorParallelStack`: heads, GEGLU
+            units, the T5 bias by heads; an int8 LM keeps fc and w_2 whole,
+            see `modules/transformer.py`);
+          * "dp": data parallel; the LMs replicated over the mesh's dp axis,
+            a batch's rows split over the dp groups where they divide;
+          * "sp": sequence parallel (`sp > 1`, exclusive with tp and a
+            mesh); the coarse LM runs a ring-attention twin over an ("sp",)
+            mesh of `sp` devices and `coarse_vamp` defaults to the
+            chunk-free path (`_shard_sequence`).
+        `mesh` is a ("dp", "tp") `parallel.Mesh`; without one,
+        `make_mesh(tp=tp, devices=devices)` (every CUDA device by default; a
+        list may repeat a device, as `["cuda:0"] * 4` or `["cpu"] * 8`).
+        The codec and the codebook tables stay on the Interface's device,
+        which must be the mesh's first device. Leaves an earlier
+        `shard(sp=)` or `shard_pipeline()`.
+
+        Under sp, as in the JAX package: sketch2sound controls are refused,
+        `sampler_impl` stays "auto" (the port's one sampler, K10, runs on the
+        gathered logits) and `VampEngine(data_parallel=True)` raises (an sp
+        interface has no dp axis)."""
+        from .parallel import make_mesh
+        from .parallel.placement import Placement
+
+        if sp > 1:
+            assert tp == 1 and mesh is None, "sp is exclusive with tp/dp"
+            return self._shard_sequence(sp, devices)
+        if mesh is None:
+            mesh = make_mesh(tp=tp, devices=devices)
+        if mesh.device_list()[0] != self.device:
+            raise ValueError(f"the mesh starts on {mesh.device_list()[0]}, the Interface "
+                             f"lives on {self.device}: the logits meet on the mesh's first "
+                             "device, which must be the Interface's")
+        self._leave_sp()
+        self._mesh = mesh
+        self._pipeline = False
+        self._codec_decode = None
+        self._placements = {
+            name: Placement(lm, mesh)
+            for name, lm in (("coarse", self.coarse), ("c2f", self.c2f)) if lm is not None}
+        return self
+
+    def _shard_sequence(self, sp: int, devices=None) -> "Interface":
+        """Sequence parallel over an ("sp",) mesh of `sp` devices: the
+        coarse LM's ring twin (the same weights, `attention_impl="ring"`)
+        runs the chunk-free `coarse_vamp`; the windowed path
+        (`chunked=True`) keeps the non-ring LM, which a repeated `shard(sp=)`
+        keeps too. The c2f LM is not placed (its windows run on the
+        Interface's device). A dp/tp mesh of an earlier `shard()` is
+        dropped, so the data-parallel engine refuses this interface."""
+        from .parallel.mesh import make_sp_mesh
+        from .parallel.placement import Placement
+
+        mesh = make_sp_mesh(n_devices=sp, devices=devices)
+        if mesh.size != sp:
+            raise ValueError(f"shard(sp={sp}) found {mesh.size} devices")
+        if mesh.device_list()[0] != self.device:
+            raise ValueError(f"the sp mesh starts on {mesh.device_list()[0]}, the Interface "
+                             f"lives on {self.device}")
+        windowed = self._coarse_windowed if self._coarse_windowed is not None else self.coarse
+        ring_cfg = dataclasses.replace(windowed.config, attention_impl="ring")
+        ring = VampNetLM(ring_cfg, device="meta")
+        ring.load_state_dict(windowed.state_dict(), strict=True, assign=True)
+        ring = ring.requires_grad_(False).eval()
+        ring.chunk_size_s = windowed.chunk_size_s
+        self._coarse_windowed, self.coarse = windowed, ring
+        self._sp_mesh = mesh
+        self._mesh = None
+        self._pipeline = False
+        self._codec_decode = None
+        self._placements = {"coarse": Placement(ring, mesh)}
+        return self
+
+    def shard_pipeline(self, n_coarse_devices: Optional[int] = None, tp: int = 1,
+                       devices=None) -> "Interface":
+        """Pipeline placement: coarse on the first `n_coarse_devices`
+        devices, c2f and the decode codec on the rest, each slice a
+        ("dp", "tp") mesh (batch rows split over its dp groups where they
+        divide). The default split is about 3:1, as in the JAX package.
+        Each stage runs on its slice's first device; `vamp_microbatched`
+        then queues group g's c2f on slice B behind group g+1's coarse on
+        slice A, which overlap where the slices are distinct devices (on one
+        card the stages run in turn). `vamp_e2e` refuses a pipeline
+        interface; `quantize()` and a swapped model unwind it."""
+        if self.c2f is None:
+            raise ValueError("pipeline placement needs both stages")
+        from .parallel import make_mesh
+        from .parallel.placement import Placement
+
+        devices = [torch.device(d) for d in (
+            devices if devices is not None else make_mesh().device_list())]
+        n = len(devices)
+        assert n >= 2, f"pipeline placement needs >=2 devices, got {n}"
+        if n_coarse_devices is None:
+            n_coarse_devices = max(tp, min(n - tp, round(n * PIPELINE_COARSE_SHARE) // tp * tp))
+        assert 0 < n_coarse_devices < n, (
+            f"coarse slice {n_coarse_devices} must leave c2f >=1 of {n} devices")
+        self._leave_sp()
+        mesh_a = make_mesh(devices=devices[:n_coarse_devices], tp=tp)
+        mesh_b = make_mesh(devices=devices[n_coarse_devices:], tp=tp)
+        self._placements = {
+            "coarse": Placement(self.coarse, mesh_a), "c2f": Placement(self.c2f, mesh_b)}
+        dev_b = self._placements["c2f"].device
+        self._codec_decode = self.codec if dev_b == self.device else \
+            copy.deepcopy(self.codec).to(dev_b)
+        self._mesh = mesh_a  # the engine's dp rounding keys off the coarse slice
+        self._pipeline = True
         return self
 
     # ---------- time/token conversion ----------
@@ -287,8 +480,11 @@ class Interface:
     def to(self, device) -> "Interface":
         """Move the codec, both LMs, the codebook tables and the beat
         tracker to `device` (the JAX package only records the device, since
-        JAX places arrays itself). Returns the Interface."""
+        JAX places arrays itself). A placement (`shard`, `shard_pipeline`)
+        is dropped: the LMs run whole on `device`. Returns the Interface."""
         device = resolve_device(device)
+        self._leave_sp()
+        self._drop_pipeline()
         self.codec.to(device)
         for lm in (self.coarse, self.c2f):
             if lm is not None:
@@ -296,7 +492,7 @@ class Interface:
         self.codebooks = self.codebooks.to(device)
         if self.beat_tracker is not None:
             self.beat_tracker.to(device)
-        self.device = device
+        self.device = next(self.codec.parameters()).device  # "cuda" -> "cuda:0"
         return self
 
     # ---------- codec ----------
@@ -328,7 +524,9 @@ class Interface:
         whose every codebook is MASK is silenced, as in the JAX package."""
         z = self._tensor(z)
         mask_token = self.coarse.mask_token
-        audio = self.codec.decode_codes(torch.where(z == mask_token, 0, z))
+        codec = self._codec_decode if self._codec_decode is not None else self.codec
+        z = z.to(next(codec.parameters()).device)
+        audio = codec.decode_codes(torch.where(z == mask_token, 0, z))
         all_masked = (z == mask_token).all(dim=1)  # (b, T)
         b, t = all_masked.shape
         hop = self.codec_config.hop_length
@@ -345,23 +543,25 @@ class Interface:
             x = torch.from_numpy(np.asarray(x))
         return x.to(self.device, torch.int64)
 
-    def _generator(self, seed) -> torch.Generator:
-        """A generator on the device, seeded by `seed` (None: a random seed)."""
+    def _generator(self, seed, device=None) -> torch.Generator:
+        """A generator on `device` (the Interface's by default), seeded by
+        `seed` (None: a random seed)."""
         if seed is not None and np.ndim(seed) > 0:
             raise NotImplementedError(
                 "per-row seeds reach coarse_vamp and coarse_to_fine only; masks and "
                 "vamp_e2e take one seed")
-        gen = torch.Generator(device=self.device)
+        gen = torch.Generator(device=self.device if device is None else device)
         gen.manual_seed(int(seed) if seed is not None else int(np.random.randint(0, 2**31 - 1)))
         return gen
 
-    def _rng(self, seed):
+    def _rng(self, seed, device=None):
         """A generation stage's randomness as (generator, row_keys), one of
         them None: per-row keys (b, 2) for a seed array, else a generator
-        (`_generator`)."""
+        (`_generator`), on `device` (the Interface's by default)."""
+        device = self.device if device is None else device
         if seed is not None and np.ndim(seed) > 0:
-            return None, _keys_from_seeds(seed, self.device)
-        return self._generator(seed), None
+            return None, _keys_from_seeds(seed, device)
+        return self._generator(seed, device), None
 
     def _mask_pipeline(self, z, gen, rand_mask_intensity, n_prefix, n_suffix,
                        periodic_prompt, periodic_prompt_width, _dropout,
@@ -536,18 +736,29 @@ class Interface:
         offset is given, and used as they are otherwise. `top_k` goes to the
         sampler kernel; `cfg_guidance` appends one unconditional row per row
         (`generate`). `debug_callback` goes to `generate`
-        (`sampling/debug.py`)."""
+        (`sampling/debug.py`).
+
+        A placed LM (`shard`, `shard_pipeline`) runs its forward through its
+        placement and the loop on the placement's first device, `generator`
+        and `row_keys` there too; the codes come back to the device the
+        start tokens came from."""
         if sampler_impl != "auto":
             raise NotImplementedError(
                 f"sampler_impl={sampler_impl!r}: the port has one sampler, the fused "
                 "kernel (sampler_impl='auto')")
+        place = self._placement(lm)
+        dev = place.device if place is not None else self.device
+        home = start_tokens.device
+        start_tokens, mask = start_tokens.to(dev), mask.to(dev)
+        if row_keys is not None:
+            row_keys = row_keys.to(dev)
         b_total, n_cb, chunk_len = start_tokens.shape
 
         def expand(v):
             if v is None or np.ndim(v) == 0:
                 return v
             v = torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
-                                dtype=torch.float32, device=self.device)
+                                dtype=torch.float32, device=dev)
             if v.shape[0] != b_total:
                 if b_total % v.shape[0]:
                     raise ValueError(f"per-row param of size {v.shape[0]} does not divide "
@@ -562,11 +773,17 @@ class Interface:
                                  f"divide batch {b_total}")
             row_keys = _expand_row_keys(row_keys, b_total // row_keys.shape[0],
                                         int(row_key_offset or 0))
-        bias = position_bias_from_params(lm, chunk_len)
+        ring = lm.config.attention_impl == "ring"
+        bias = None if ring else position_bias_from_params(lm, chunk_len)
         cbs = self.codebooks[:n_cb]
+        if place is not None:
+            forward = lambda zm: place.forward_codes(zm, cbs, bias)  # noqa: E731
+        elif ring:
+            raise RuntimeError("a ring-attention LM runs only under shard(sp=)")
+        else:
+            forward = lambda zm: lm.forward_codes(zm, cbs, position_bias=bias)  # noqa: E731
         return generate(
-            lambda zm: lm.forward_codes(zm, cbs, position_bias=bias),
-            start_tokens, mask, lm.mask_token, generator,
+            forward, start_tokens, mask, lm.mask_token, generator,
             n_conditioning_codebooks=lm.config.n_conditioning_codebooks,
             sampling_steps=int(_sampling_steps), temperature=expand(temperature),
             mask_temperature=expand(mask_temperature),
@@ -575,7 +792,7 @@ class Interface:
             sample_cutoff=expand(sample_cutoff), row_keys=row_keys,
             cfg_guidance=None if cfg_guidance is None else float(cfg_guidance),
             debug_callback=debug_callback,
-        )
+        ).to(home)
 
     @torch.inference_mode()
     def coarse_vamp(self, z, mask, return_mask: bool = False,
@@ -587,20 +804,26 @@ class Interface:
         masked coarse codes). `seed` is an int (one generator) or an array of
         b seeds (per-row keys). `gen_fn(start_tokens=, mask=, generator=,
         **kwargs)` replaces the MaskGIT call; with a seed array it gets
-        `generator=None` and `row_keys=`. The chunk-free path
-        (`chunked=False`) needs the sp mesh, which is not ported."""
-        if chunked is False:
-            raise NotImplementedError(
-                "chunk-free coarse_vamp (chunked=False) runs ring attention over an sp "
-                "mesh, which is not ported: ROADMAP Queue A item 9")
+        `generator=None` and `row_keys=`.
+
+        After `shard(sp=N)` the default is the chunk-free path
+        (`chunked=False`, `_coarse_vamp_unchunked`): one ring-attention
+        generate over the whole sequence, no windows and no seam pinning.
+        `chunked=True` forces the windows there (on the non-ring LM)."""
+        if chunked is None:
+            chunked = self._sp_mesh is None
+        if not chunked:
+            return self._coarse_vamp_unchunked(z, mask, return_mask=return_mask, seed=seed,
+                                               **kwargs)
         z, mask = self._tensor(z), self._tensor(mask)
-        lm = self.coarse
+        # under shard(sp=) the windowed path runs the non-ring twin
+        lm = self._coarse_windowed if self._coarse_windowed is not None else self.coarse
         n_coarse = lm.config.n_codebooks
         b, _, t = z.shape
         (pre, post), _ = self._chunk_fns(n_coarse, b, t, self.s2t(lm.chunk_size_s),
                                          lm.mask_token, pin_edges=True)
         cz_masked, m_chunks = pre(z[:, :n_coarse], mask[:, :n_coarse])
-        generator, row_keys = self._rng(seed)
+        generator, row_keys = self._rng(seed, self._stage_device(lm))
         if gen_fn is not None:
             if row_keys is not None:
                 kwargs["row_keys"] = row_keys
@@ -614,6 +837,51 @@ class Interface:
             c_vamp = torch.cat([c_vamp, z[:, n_coarse:]], dim=1)
         if return_mask:
             return c_vamp, post(cz_masked)
+        return c_vamp
+
+    def sp_pad_len(self, t: int) -> int:
+        """The length the chunk-free (sp) path runs a t-token sequence at:
+        the time shards must be equal, so t is padded up to a multiple of sp
+        (of 128 sp once a shard reaches 128 tokens). The padded tail is
+        fully masked and cropped after generation. The engine buckets sp
+        requests on this grid, so that batched and solo requests run the
+        same sequence length (a longer one changes the tokens: padded
+        positions attend and count in the MaskGIT schedule)."""
+        assert self._sp_mesh is not None, "sp_pad_len requires shard(sp=N)"
+        n_sp = self._sp_mesh.shape["sp"]
+        mult = n_sp * (128 if t >= n_sp * 128 else 1)
+        return ((t + mult - 1) // mult) * mult
+
+    @torch.inference_mode()
+    def _coarse_vamp_unchunked(self, z, mask, return_mask: bool = False, seed=None,
+                               **kwargs):
+        """The chunk-free coarse vamp (sp): the whole sequence, padded to
+        `sp_pad_len` with masked tokens, as one generate whose forwards run
+        the ring-attention `RingStack` over the sp mesh (the (t, t) bias is
+        never built); the logits meet on the mesh's first device, where K10
+        samples them as on the unsharded path. Needs `shard(sp=N)`."""
+        assert self._sp_mesh is not None, (
+            "chunk-free coarse_vamp requires interface.shard(sp=N) first")
+        if kwargs.get("sampler_impl", "auto") != "auto":
+            raise NotImplementedError(
+                f"sampler_impl={kwargs['sampler_impl']!r}: under shard(sp=) the port's one "
+                "sampler (K10) runs on the gathered logits; leave sampler_impl at 'auto'")
+        z, mask = self._tensor(z), self._tensor(mask)
+        lm = self.coarse
+        n_coarse = lm.config.n_codebooks
+        b, _, t = z.shape
+        pad = self.sp_pad_len(t) - t
+        zp = F.pad(z[:, :n_coarse], (0, pad))
+        mp = F.pad(mask[:, :n_coarse], (0, pad), value=1)
+        z_masked = torch.where(mp.bool(), lm.mask_token, zp)
+        generator, row_keys = self._rng(seed, self._stage_device(lm))
+        c_vamp = self._run_generate(lm, z_masked, mp, generator, row_keys=row_keys,
+                                    **kwargs)[:, :, :t]
+        if z.shape[1] > n_coarse:
+            c_vamp = torch.cat([c_vamp, z[:, n_coarse:]], dim=1)
+        if return_mask:
+            return c_vamp, torch.where(mask[:, :n_coarse].bool(), lm.mask_token,
+                                       z[:, :n_coarse])
         return c_vamp
 
     @torch.inference_mode()
@@ -638,7 +906,7 @@ class Interface:
         z_masked, m_chunks = pre(z, mask)
         kwargs.setdefault("_sampling_steps", 2)
         kwargs.setdefault("typical_filtering", True)
-        generator, row_keys = self._rng(seed)
+        generator, row_keys = self._rng(seed, self._stage_device(lm))
         fine_z = post(self._run_generate(lm, z_masked, m_chunks, generator, row_keys=row_keys,
                                          **kwargs))
         if return_mask:
@@ -776,6 +1044,10 @@ class Interface:
         input is supported on that path (NaN has no PCM value)."""
         if transfer_dtype not in ("float32", "int16"):
             raise ValueError(f"transfer_dtype must be float32 or int16, got {transfer_dtype}")
+        assert not self._pipeline, (
+            "vamp_e2e is one request on one device and cannot span the two pipeline "
+            "slices; with shard_pipeline use the staged path (encode/build_mask/vamp/"
+            "decode) or serve.VampEngine")
         dev = self.device
         sig = self._preprocess(sig)
         audio_np = sig.samples.transpose(0, 2, 1)  # (b, t, 1)
@@ -796,7 +1068,9 @@ class Interface:
         # ---- batch expand + coarse chunks as batch rows ----
         z = codes.expand((batch_size,) + codes.shape[1:]).contiguous()
         m = m.expand((batch_size,) + m.shape[1:]).contiguous()
-        coarse, c2f = self.coarse, self.c2f
+        # under shard(sp=) the chunk rows run the non-ring twin
+        coarse = self._coarse_windowed if self._coarse_windowed is not None else self.coarse
+        c2f = self.c2f
         n_coarse = coarse.config.n_codebooks
         sampling = dict(temperature=temperature, mask_temperature=mask_temperature,
                         typical_mass=typical_mass, typical_min_tokens=typical_min_tokens,

@@ -19,7 +19,8 @@ attention and FFN projection as a w8a8 matmul (`LoRADense(quantize=True)`),
 and `ffn_impl="fused"` runs each layer's RMSNorm, GEGLU feed-forward and
 residual add as one kernel (`ops/ffn_kernel.py`). `attention_impl` picks the
 attention route (`ops/attention.py`): "auto" (the kernels on the card),
-"pallas", "xla" (the library call) or "ring" (not ported). `TransformerStack`
+"pallas", "xla" (the library call) or "ring" (sequence-parallel ring
+attention, which runs only inside a `RingStack`). `TransformerStack`
 takes an attention mask `x_mask` (b, t, t) or (b, 1, t, t), 0 = blocked, as
 the JAX stack does; `VampNetLM` passes none, as in JAX. LoRA adapters
 (`lora_r > 0`) sit on w_qs, w_vs, fc, w_1 and w_2 (`modules/lora.py`). With
@@ -28,8 +29,27 @@ Dense per control, masked per frame, classifier-free-guidance dropout while
 training) adds them to the embedding before the stack. With `remat` the
 stack recomputes each layer in the backward (`torch.utils.checkpoint`)
 instead of keeping its activations, its dropout masks redrawn from a copy of
-the generator's state at the layer (`_remat_layer`). Not ported yet: ring
-attention.
+the generator's state at the layer (`_remat_layer`).
+
+Two sharded stacks replace `TransformerStack` in an inference forward
+(`VampNetLM.forward(stack=)`, which `Interface.shard` sets up through
+`parallel/placement.py`):
+  * `TensorParallelStack`: the layers split Megatron-style over the devices
+    of a tp group (`parallel/partition.py`): each shard holds h/tp heads of
+    q, k, v with the matching columns of fc, and f = 2d/tp GEGLU units (its
+    block of w_1's value half and the same block of its gate half) with the
+    matching columns of w_2. Each shard's attention takes its heads' slice
+    of the T5 bias; the fc and w_2 partial sums meet on the group's first
+    device, where the residual is added once (the fused FFN's kernel adds
+    it on shard 0 only). An int8 LM keeps fc and w_2 whole on the first
+    device (`row_parallel`): w8a8 quantizes each activation row by its
+    absmax, which a shard of the row's features cannot know, so the sharded
+    int8 forward is the unsharded one bit for bit. The other shards of an
+    int8 group hold no fc or w_2, and a group's stack is all a replica on
+    another device needs of the layers.
+  * `RingStack`: the time axis split over the devices of an sp mesh; every
+    layer is position-wise but attention, which runs as ring attention
+    (`ops/ring_attention.py`) over the q, k, v shards.
 """
 from __future__ import annotations
 
@@ -162,55 +182,81 @@ class RMSNorm(nn.Module):
         return (self.weight.float() * y).to(x.dtype)
 
 
+def row_parallel(cfg: LMConfig) -> bool:
+    """Whether a tensor-parallel shard splits the row sites (fc, w_2) by
+    their inputs. Not for an int8 LM: w8a8 scales each activation row by
+    its absmax over all its features, which a shard of them cannot know."""
+    return cfg.quantization != "int8"
+
+
 class MultiHeadRelativeAttention(nn.Module):
     """Self-attention over (b, t, d) with a head-shared additive bias."""
 
     def __init__(self, d_model: int, n_head: int, has_relative_attention_bias: bool,
-                 cfg: LMConfig, device=None):
+                 cfg: LMConfig, device=None, tp: int = 1):
         super().__init__()
         if cfg.attention_impl not in IMPLS:
             raise ValueError(f"attention_impl must be one of {IMPLS}, got {cfg.attention_impl!r}")
-        self.n_head = n_head
+        # a tensor-parallel shard (tp > 1) holds n_head / tp heads
+        self.n_head = n_head // tp
+        self.d_head = d_model // n_head
         self.attention_impl = cfg.attention_impl
-        dense = lambda r: LoRADense(d_model, d_model, r=r, compute_dtype=cfg.dtype,
-                                    quantize=cfg.quantization == "int8", device=device)
+        inner = self.n_head * self.d_head
+        dense = lambda n_in, n_out, r: LoRADense(n_in, n_out, r=r, compute_dtype=cfg.dtype,
+                                                 quantize=cfg.quantization == "int8",
+                                                 device=device)
         # the key projection never takes adapters, as in the JAX package
-        self.w_qs, self.w_ks = dense(cfg.lora_r), dense(0)
-        self.w_vs, self.fc = dense(cfg.lora_r), dense(cfg.lora_r)
+        self.w_qs, self.w_ks = dense(d_model, inner, cfg.lora_r), dense(d_model, inner, 0)
+        self.w_vs = dense(d_model, inner, cfg.lora_r)
+        self.fc = dense(inner if row_parallel(cfg) else d_model, d_model, cfg.lora_r)
         if has_relative_attention_bias:
             self.relative_attention_bias = nn.Parameter(
                 torch.empty(cfg.attention_num_buckets, n_head, device=device)
             )
 
-    def forward(self, x: torch.Tensor, position_bias: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, t, d = x.shape
-        shape = (b, t, self.n_head, d // self.n_head)
-        q = self.w_qs(x).reshape(shape)
-        k = self.w_ks(x).reshape(shape)
-        v = self.w_vs(x).reshape(shape)
+    def project(self, x: torch.Tensor):
+        """q, k, v (b, t, heads, d_head) of x (b, t, d)."""
+        b, t, _ = x.shape
+        shape = (b, t, self.n_head, self.d_head)
+        return (self.w_qs(x).reshape(shape), self.w_ks(x).reshape(shape),
+                self.w_vs(x).reshape(shape))
+
+    def attend(self, x: torch.Tensor, position_bias: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The heads' outputs (b, t, heads * d_head), before fc."""
+        q, k, v = self.project(x)
         out = dot_product_attention(q, k, v, bias=position_bias, mask=mask,
                                     impl=self.attention_impl)
-        return self.fc(out.reshape(b, t, d))
+        return out.reshape(x.shape[0], x.shape[1], -1)
+
+    def forward(self, x: torch.Tensor, position_bias: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.fc(self.attend(x, position_bias, mask))
 
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward: w_1 to 4d, gate one half by the GELU of the
     other, w_2 from 2d back to d."""
 
-    def __init__(self, d_model: int, cfg: LMConfig, device=None):
+    def __init__(self, d_model: int, cfg: LMConfig, device=None, tp: int = 1):
         super().__init__()
         self.p = cfg.dropout
         quantize = cfg.quantization == "int8"
-        self.w_1 = LoRADense(d_model, 4 * d_model, r=cfg.lora_r,
+        units = 2 * d_model // tp  # a tensor-parallel shard's GEGLU units
+        self.w_1 = LoRADense(d_model, 2 * units, r=cfg.lora_r,
                              compute_dtype=cfg.dtype, quantize=quantize, device=device)
-        self.w_2 = LoRADense(2 * d_model, d_model, r=cfg.lora_r,
+        self.w_2 = LoRADense(units if row_parallel(cfg) else 2 * d_model, d_model, r=cfg.lora_r,
                              compute_dtype=cfg.dtype, quantize=quantize, device=device)
+
+    def hidden(self, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The gated hidden units p1 * gelu(p2), before w_2."""
+        p1, p2 = self.w_1(x).chunk(2, dim=-1)
+        return dropout(p1 * new_gelu(p2), self.p, generator)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        p1, p2 = self.w_1(x).chunk(2, dim=-1)
-        return self.w_2(dropout(p1 * new_gelu(p2), self.p, generator))
+        return self.w_2(self.hidden(x, generator))
 
 
 class TransformerLayer(nn.Module):
@@ -219,7 +265,8 @@ class TransformerLayer(nn.Module):
     one call of `fused_geglu_ffn` on the pre-norm x, fed `norm_3.weight` and
     the FFN's weights; the state dict is the unfused path's."""
 
-    def __init__(self, cfg: LMConfig, has_relative_attention_bias: bool, device=None):
+    def __init__(self, cfg: LMConfig, has_relative_attention_bias: bool, device=None,
+                 tp: int = 1):
         super().__init__()
         if cfg.ffn_impl not in ("auto", "xla", "fused"):
             raise ValueError(f"ffn_impl must be auto, xla or fused, got {cfg.ffn_impl!r}")
@@ -233,22 +280,32 @@ class TransformerLayer(nn.Module):
         self.p = cfg.dropout
         self.norm_1 = RMSNorm(d, device=device)
         self.self_attn = MultiHeadRelativeAttention(
-            d, cfg.n_heads, has_relative_attention_bias, cfg, device=device)
+            d, cfg.n_heads, has_relative_attention_bias, cfg, device=device, tp=tp)
         self.norm_3 = RMSNorm(d, device=device)
-        self.feed_forward = FeedForward(d, cfg, device=device)
+        self.feed_forward = FeedForward(d, cfg, device=device, tp=tp)
+
+    def fused(self, x: torch.Tensor, residual: bool = True) -> torch.Tensor:
+        """The fused kernel's call on x: x + FeedForward(RMSNorm(x)), or the
+        feed-forward alone (a tensor-parallel shard's partial sum)."""
+        ff = self.feed_forward
+        return fused_geglu_ffn(x.to(ff.w_1.compute_dtype), self.norm_3.weight, ff.w_1.weight,
+                               ff.w_2.weight, self.norm_3.eps, residual=residual)
+
+    def ffn_block(self, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The layer's second half: x + FeedForward(RMSNorm(x))."""
+        if self.fused_ffn:
+            if generator is not None:
+                raise ValueError("ffn_impl='fused' needs no dropout generator, lora_r=0, no int8")
+            return self.fused(x)
+        y = self.feed_forward(self.norm_3(x), generator)
+        return x + dropout(y, self.p, generator)
 
     def forward(self, x: torch.Tensor, position_bias: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 x_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + dropout(self.self_attn(self.norm_1(x), position_bias, x_mask), self.p, generator)
-        if self.fused_ffn:
-            if generator is not None:
-                raise ValueError("ffn_impl='fused' needs no dropout generator, lora_r=0, no int8")
-            ff = self.feed_forward
-            return fused_geglu_ffn(x.to(ff.w_1.compute_dtype), self.norm_3.weight,
-                                   ff.w_1.weight, ff.w_2.weight, self.norm_3.eps)
-        y = self.feed_forward(self.norm_3(x), generator)
-        return x + dropout(y, self.p, generator)
+        return self.ffn_block(x, generator)
 
 
 def _remat_layer(layer: TransformerLayer, x: torch.Tensor, position_bias: torch.Tensor,
@@ -304,6 +361,157 @@ class TransformerStack(nn.Module):
             else:
                 x = layer(x, position_bias, generator, x_mask)
         return self.norm(x)
+
+
+def _sum_on(parts, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The sum of the shards' partial results on `device`, taken in fp32
+    and rounded once to `dtype` (the reduction at the end of a row-parallel
+    product)."""
+    acc = parts[0].to(device).float()
+    for p in parts[1:]:
+        acc = acc + p.to(device).float()
+    return acc.to(dtype)
+
+
+def _shard_layers(lm: "VampNetLM", j: int, n: int, device: torch.device) -> list:
+    """Tensor-parallel shard j of n of `lm`'s layers, on `device`. Without
+    `row_parallel` only shard 0 holds fc and w_2 (whole); the others have
+    none."""
+    from ..parallel.partition import tp_shard_state_dict
+
+    cfg = lm.config
+    part = tp_shard_state_dict(lm.state_dict(), j, n, row_parallel(cfg))
+    no_rows = j > 0 and not row_parallel(cfg)  # shard 0 runs the whole row sites
+    layers = []
+    for i in range(cfg.n_layers):
+        prefix = f"transformer.layers_{i}."
+        layer = TransformerLayer(cfg, False, device="meta", tp=n)
+        sd = {k[len(prefix):]: v.to(device).contiguous() for k, v in part.items()
+              if k.startswith(prefix) and not (no_rows and (".self_attn.fc." in k
+                                                            or ".feed_forward.w_2." in k))}
+        if no_rows:
+            layer.self_attn.fc = layer.feed_forward.w_2 = None
+        layer.load_state_dict(sd, strict=True, assign=True)
+        layers.append(layer.requires_grad_(False).eval())
+    return layers
+
+
+class TensorParallelStack:
+    """`lm`'s layers split over `devices` (one tp group), with its final
+    norm on the first device: a stand-in for `lm.transformer` in an
+    inference forward, `stack(x, position_bias)` with x and the output on
+    the first device. Shard j holds heads [j h/n, (j+1) h/n) and GEGLU units
+    [j f/n, (j+1) f/n) of each half of w_1 (`tp_shard_state_dict`). Without
+    `row_parallel` (the int8 LMs) fc and w_2 run whole on the first device
+    on the heads' and units' outputs gathered in order."""
+
+    def __init__(self, lm: "VampNetLM", devices):
+        cfg = lm.config
+        n = len(devices)
+        if cfg.n_heads % n or (2 * cfg.embedding_dim) % n:
+            raise ValueError(f"tp={n} must divide the {cfg.n_heads} heads and "
+                             f"{2 * cfg.embedding_dim} GEGLU units")
+        self.config = cfg
+        self.devices = [torch.device(d) for d in devices]
+        self.row_parallel = row_parallel(cfg)
+        norm = lm.transformer.norm
+        if norm.weight.device != self.devices[0]:
+            import copy
+
+            norm = copy.deepcopy(norm).to(self.devices[0])
+        self.norm = norm
+        self.shards = [_shard_layers(lm, j, n, dev) for j, dev in enumerate(self.devices)]
+
+    def __call__(self, x: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
+        cfg, devs = self.config, self.devices
+        n, h = len(devs), cfg.n_heads // len(devs)
+        dt, home = x.dtype, devs[0]
+        # each shard's heads of the bias: a contiguous block of its rows
+        biases = [position_bias[j * h:(j + 1) * h].to(dev) for j, dev in enumerate(devs)]
+        for i in range(cfg.n_layers):
+            layers = [shard[i] for shard in self.shards]
+            outs = [lay.self_attn.attend(lay.norm_1(x.to(dev)), bias)
+                    for lay, dev, bias in zip(layers, devs, biases)]
+            if self.row_parallel:
+                a = _sum_on([lay.self_attn.fc(o) for lay, o in zip(layers, outs)], home, dt)
+            else:
+                a = layers[0].self_attn.fc(torch.cat([o.to(home) for o in outs], dim=-1))
+            x = x + a
+            if layers[0].fused_ffn:
+                # the residual once: shard 0's kernel adds x, the others do not
+                x = _sum_on([lay.fused(x.to(dev), residual=j == 0)
+                             for j, (lay, dev) in enumerate(zip(layers, devs))], home, dt)
+                continue
+            gs = [lay.feed_forward.hidden(lay.norm_3(x.to(dev))) for lay, dev in zip(layers, devs)]
+            if self.row_parallel:
+                y = _sum_on([lay.feed_forward.w_2(g) for lay, g in zip(layers, gs)], home, dt)
+            else:
+                y = layers[0].feed_forward.w_2(torch.cat([g.to(home) for g in gs], dim=-1))
+            x = x + y
+        return self.norm(x)
+
+
+class RingStack:
+    """`lm`'s layers over the devices of an sp mesh, the time axis split
+    into equal shards (shard i on `devices[i]`): a stand-in for
+    `lm.transformer` in an inference forward, `stack(x)` with x and the
+    output on the first device. Every layer is position-wise but attention,
+    which is ring attention over the shards (`ops/ring_attention.py`), its
+    T5 bias blocks built from layer 0's bucket table for each (query shard,
+    key shard) offset and kept per sequence length. Devices other than the
+    LM's get a copy of its layers; a repeated device shares them."""
+
+    def __init__(self, lm: "VampNetLM", devices):
+        import copy
+
+        self.config = lm.config
+        self.devices = [torch.device(d) for d in devices]
+        home = lm.transformer.norm.weight.device
+        self.replicas = {}
+        for dev in self.devices:
+            if dev not in self.replicas:
+                self.replicas[dev] = lm.transformer if dev == home else \
+                    copy.deepcopy(lm.transformer).to(dev)
+        self._blocks: Dict[tuple, torch.Tensor] = {}
+
+    def bias_block(self, i: int, src: int, tl: int) -> torch.Tensor:
+        """The (h, tl, tl) T5 bias of query shard i against key shard src, in
+        the table's dtype, on device i: it depends on src - i alone."""
+        dev, cfg = self.devices[i], self.config
+        key = (dev, src - i, tl)
+        if key not in self._blocks:
+            if any(k[2] != tl for k in self._blocks):
+                self._blocks.clear()
+            table = self.replicas[dev].layers_0.self_attn.relative_attention_bias
+            pos = torch.arange(tl, device=dev)
+            rel = (src - i) * tl + pos[None, :] - pos[:, None]
+            buckets = relative_position_bucket(
+                rel, bidirectional=True, num_buckets=cfg.attention_num_buckets,
+                max_distance=cfg.attention_max_distance)
+            self._blocks[key] = table[buckets].permute(2, 0, 1).contiguous()
+        return self._blocks[key]
+
+    def __call__(self, x: torch.Tensor, position_bias=None) -> torch.Tensor:
+        from ..ops.ring_attention import ring_attention
+
+        cfg, devs = self.config, self.devices
+        n = len(devs)
+        b, t, d = x.shape
+        if t % n:
+            raise ValueError(f"sequence length {t} does not split into {n} equal shards")
+        tl = t // n
+        xs = [x[:, i * tl:(i + 1) * tl].to(dev) for i, dev in enumerate(devs)]
+        for li in range(cfg.n_layers):
+            layers = [getattr(self.replicas[dev], f"layers_{li}") for dev in devs]
+            qkv = [lay.self_attn.project(lay.norm_1(xi)) for lay, xi in zip(layers, xs)]
+            outs = ring_attention([q for q, _, _ in qkv], [k for _, k, _ in qkv],
+                                  [v for _, _, v in qkv],
+                                  lambda i, src: self.bias_block(i, src, tl))
+            xs = [lay.ffn_block(xi + lay.self_attn.fc(o.reshape(b, tl, d)))
+                  for lay, xi, o in zip(layers, xs, outs)]
+        home = devs[0]
+        return torch.cat([self.replicas[dev].norm(xi).to(home) for dev, xi in zip(devs, xs)],
+                         dim=1)
 
 
 class CFGDropout(nn.Module):
@@ -396,21 +604,29 @@ class VampNetLM(nn.Module):
                 position_bias: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 ctrls: Optional[Dict[str, torch.Tensor]] = None,
-                ctrl_masks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                ctrl_masks: Optional[Dict[str, torch.Tensor]] = None,
+                stack=None) -> torch.Tensor:
         """latents (b, t, n_codebooks*latent_dim) -> fp32 logits
         (b, t, n_predict_codebooks, vocab). A `generator` turns dropout (and
         the controls' CFG dropout) on (training) and its draws come from it;
         without one the forward is deterministic. An LM with `ctrl_dims`
-        takes `ctrls` and `ctrl_masks`, one entry per control."""
+        takes `ctrls` and `ctrl_masks`, one entry per control. `stack` (a
+        `TensorParallelStack` or a `RingStack`) runs the layers in place of
+        `self.transformer`, in an inference forward."""
         cfg = self.config
-        if position_bias is None:
+        if stack is not None and generator is not None:
+            raise ValueError("a sharded stack runs inference forwards only (no generator)")
+        if position_bias is None and not isinstance(stack, RingStack):
             position_bias = position_bias_from_params(self, latents.shape[1])
         x = self.embedding(latents)
         if cfg.ctrl_dims is not None:
             x = x + self.ctrl_encoder(x, ctrls, ctrl_masks, generator)
         elif ctrls is not None:
             raise ValueError("controls given to an LM without ctrl_dims")
-        out = self.transformer(x, position_bias, generator)
+        if stack is not None:
+            out = stack(x, position_bias)
+        else:
+            out = self.transformer(x, position_bias, generator)
         logits = self.classifier(out)  # (b, t, C*vocab), codebook-major
         b, t, _ = logits.shape
         return logits.reshape(b, t, cfg.n_predict_codebooks, cfg.vocab_size).float()
@@ -419,8 +635,9 @@ class VampNetLM(nn.Module):
                       position_bias: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       ctrls: Optional[Dict[str, torch.Tensor]] = None,
-                      ctrl_masks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                      ctrl_masks: Optional[Dict[str, torch.Tensor]] = None,
+                      stack=None) -> torch.Tensor:
         """codes (b, n_codebooks, t) -> logits in one call (the sampler's
         forward, and the training step's)."""
         return self(self.embedding.from_codes(codes, codebooks), position_bias, generator,
-                    ctrls, ctrl_masks)
+                    ctrls, ctrl_masks, stack)

@@ -15,8 +15,10 @@
   * "xla": the library route, the counterpart of JAX's non-Pallas route:
     one `F.scaled_dot_product_attention` call with the bias and the folded
     mask as a float `attn_mask`. It is taken only when a config asks for it.
-  * "ring": sequence-parallel ring attention, not ported (ROADMAP Queue A
-    item 9, the sp path).
+  * "ring": sequence-parallel ring attention (`ops/ring_attention.py`). It
+    needs every shard of the sequence at once, so it runs inside a
+    `RingStack` (`modules/transformer.py`, set up by `Interface.shard(sp=)`),
+    never through this function, which raises for it.
 """
 from __future__ import annotations
 
@@ -78,9 +80,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v: (b, t, h, d); bias: (h, t, t) head-shared; mask: (b, t, t) or
     (b, 1, t, t), 0 = blocked. Routes by `impl` as the module docstring says."""
     if impl == "ring":
-        raise NotImplementedError(
-            "attention_impl='ring' (sequence-parallel ring attention) is not ported: "
-            "ROADMAP Queue A item 9, the sp path")
+        raise RuntimeError(
+            "attention_impl='ring' runs only in a ring context: a RingStack over an sp mesh "
+            "(Interface.shard(sp=N), or VampNetLM.forward(stack=RingStack(lm, devices)))")
     if impl == "xla":
         return attention_library(q, k, v, bias, mask)
     if impl not in IMPLS:

@@ -53,11 +53,11 @@ _SIGNATURES = {
     # m, n, device -> the w8a8 GEMM's tile width there (0: no device)
     "vampnet_w8a8_block_n": (_I, _I, _I),
     # x, norm_weight, nw_is_bf16, w1, w2, y (scratch), g (scratch), out, m,
-    # d, eps, device, stream
-    "vampnet_geglu_ffn": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
-    # m, d, up, device -> the tile width of the up- (up = 1) or
+    # d, f (hidden units), add_x, eps, device, stream
+    "vampnet_geglu_ffn": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # m, d, f, up, device -> the tile width of the up- (up = 1) or
     # down-projection GEMM there (0: no device)
-    "vampnet_geglu_ffn_block_n": (_I, _I, _I, _I),
+    "vampnet_geglu_ffn_block_n": (_I, _I, _I, _I, _I),
     # logits, keys, temp, top_p, flag, tokens, probs, b, flat, vocab, step,
     # typical, typical_mass, typical_min_tokens, top_k (0: off), use_top_p,
     # device, stream

@@ -10,7 +10,9 @@ Concurrent requests are merged into shared device batches:
     sample_cutoff, seed) are per-row tensors, so heterogeneous requests share
     a batch;
   * token lengths are padded to the coarse chunk grid, so requests of
-    different lengths can share a group;
+    different lengths can share a group (on an sp interface, to
+    `Interface.sp_pad_len`: the chunk-free path's own grid, so a request's
+    batched tokens are its solo ones);
   * the static sampling config (steps, typical filter, whether top-p is on,
     coarse only) keys the groups: requests that differ there run in separate
     batches;
@@ -24,7 +26,10 @@ keys (`Interface.coarse_vamp(seed=array)`), so it gets the same tokens
 served alone or batched, up to the card's choice of GEMM algorithm for the
 batch's row count (bf16 logits may differ in their last bits).
 
-The engine wraps an `Interface` and never moves work off its device.
+With `data_parallel=True` (after `Interface.shard()` or `shard_pipeline()`)
+a group is rounded up to a multiple of the mesh's dp size by repeating its
+last request (the extra rows' outputs are dropped), and its rows split over
+the dp groups of the mesh (`parallel/placement.py`).
 """
 from __future__ import annotations
 
@@ -68,17 +73,18 @@ class VampEngine:
         data_parallel: bool = False,
         pipeline_depth: int = 2,
     ):
-        """`data_parallel=True` (requests spread over the devices of a mesh)
-        needs multi-GPU inference, which is not ported."""
-        if data_parallel:
-            raise NotImplementedError(
-                "data_parallel serving needs Interface.shard over several cards, which is "
-                "not ported: ROADMAP Queue A item 9, multi-GPU inference")
+        """With `data_parallel=True` (which needs a prior `interface.shard()`),
+        a group's rows split over the mesh's dp groups while the weights
+        stay replicated."""
         self.interface = interface
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
         self.bucket_tokens = bucket_tokens or interface.s2t(interface.coarse.chunk_size_s)
         self.data_parallel = data_parallel
+        mesh = getattr(interface, "_mesh", None)
+        if data_parallel:
+            assert mesh is not None, "data_parallel serving requires interface.shard(mesh) first"
+        self.dp = mesh.shape.get("dp", 1) if data_parallel else 1
         self._q: "queue.Queue[Tuple[VampRequest, Future]]" = queue.Queue()
         # dispatched batches whose results are not on the host yet; the
         # bounded put() is the backpressure that caps device memory at
@@ -163,6 +169,8 @@ class VampEngine:
         )
 
     def _bucket_len(self, t: int) -> int:
+        if getattr(self.interface, "_sp_mesh", None) is not None:
+            return self.interface.sp_pad_len(t)
         b = self.bucket_tokens
         return ((t + b - 1) // b) * b
 
@@ -234,13 +242,14 @@ class VampEngine:
         t_bucket = key[0]
         reqs = [r for r, _ in items]
         n = len(reqs)
+        lens = [r.codes.shape[-1] for r in reqs]
+        # data parallel: a multiple of dp rows, the last request repeated
+        reqs = reqs + [reqs[-1]] * (-n % self.dp)
         n_cb = reqs[0].codes.shape[1]
-        codes = np.zeros((n, n_cb, t_bucket), dtype=np.int64)
-        mask = np.ones((n, n_cb, t_bucket), dtype=np.int64)
-        lens = []
+        codes = np.zeros((len(reqs), n_cb, t_bucket), dtype=np.int64)
+        mask = np.ones((len(reqs), n_cb, t_bucket), dtype=np.int64)
         for i, r in enumerate(reqs):
             t = r.codes.shape[-1]
-            lens.append(t)
             codes[i, :, :t] = r.codes[0]
             mask[i, :, :t] = r.mask[0]
 
