@@ -140,6 +140,21 @@ Phases, each of which must pass (no failure is caught):
      the chunk-free greedy coarse vamp on 40 s (3,445 tokens padded to
      3,584 and 4,096), against the whole-sequence greedy generate (K9).
      Launches, wall and busy ms of each path print beside the card.
+ 17. distributed training on one card (`distributed_training_phase`): K4
+     and K8 at the shard shapes of the sharded coarse step, (b, h) =
+     (4, 10), (8, 5), (2, 20) at t=862, against their plain versions and
+     timed beside their bounds and SDPA; the full-width coarse step at b=8
+     over meshes that repeat cuda:0, (dp, tp) = (2, 2), (1, 4), (4, 1)
+     (`ShardedTrainState`: tp shards, ZeRO-1 moments over dp): one step on
+     an unsharded step's draws with dropout off, held to it (loss, first
+     moments, updates) within bounds that planted faults exceed (a dp
+     group's gradient dropped, a tp shard's bias heads rolled, a ZeRO-1
+     slice not gathered back), then 2 steps from the audio and a profiled
+     one, K4 = K8 = 20 dp tp a step (K4 160 once under remat), each
+     position's bytes equal to the spec'd split; then `train()` on two gloo
+     ranks sharing cuda:0 (full widths, 2 of 20 layers, b=4, 2 steps,
+     validation, samples and a save: rank 0's files alone) against a
+     one-rank NCCL job whose two positions are the two dp groups.
 Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernels
 against their plain versions at the serving shapes, the w8a8 kernel also at
 ragged shapes (m 1, 37, 300; k 16, 80, 2,560; n 8, 40, 5,128; bf16 and fp32
@@ -3614,6 +3629,402 @@ def multi_device_phase(codec_cfg, gen, card):
     return summary, checks
 
 
+# Bounds of phase 17's comparisons of the sharded coarse step with the
+# unsharded one (bf16 compute, dropout off, the same draws), set at 2-3x the
+# readings on the card (PERF.md, the distributed-training findings: loss
+# 7.5e-5, moments 3.3e-3, the bucket table's 0.16, updates 0.079), each
+# shown in every run to fail planted faults (`planted_training_fault`).
+DIST_LOSS_BOUND = 2e-4        # loss, relative
+DIST_MU_BOUND = 1e-2          # first moments (0.1 g), relative Frobenius over every tensor
+DIST_MU_WORST_BOUND = 0.4     # the same, of the worst tensor (the bucket table's, at tp > 1)
+DIST_DELTA_BOUND = 0.2        # the parameters' updates, relative Frobenius over every tensor
+# two gloo ranks vs one NCCL rank, parameters after 2 steps, relative: read
+# 3.2e-9 (dq's reduction order varies between runs); a rank's gradient lost
+# in the all_reduce moves them by 1e-2 or more
+DIST_RANKS_BOUND = 1e-7
+
+
+@contextlib.contextmanager
+def planted_training_fault(kind):
+    """A planted fault in every sharded step inside the block:
+    "dp_group_dropped" leaves the last dp group's gradient out of the sum;
+    "bias_heads_rolled" gives each tp shard the next shard's heads of the
+    T5 bias; "zero1_slice_not_gathered" leaves the last dp group's updated
+    ZeRO-1 slices out of the other replicas. A check that passes one is
+    blind to it."""
+    import types
+
+    from vampnet_tpu_torch.modules.transformer import TensorParallelStack
+    from vampnet_tpu_torch.train import step as step_mod
+
+    saved = (step_mod.sum_dp_grads, step_mod.gather_slices, TensorParallelStack.shard_biases)
+    real_sum, real_gather, real_biases = saved
+    if kind == "dp_group_dropped":
+        step_mod.sum_dp_grads = lambda groups, held, cross: real_sum(groups[:-1], held, cross)
+    elif kind == "bias_heads_rolled":
+        def rolled(self, position_bias):
+            biases = real_biases(self, position_bias)
+            return [b.to(d) for b, d in zip(biases[1:] + biases[:1], self.devices)]
+        TensorParallelStack.shard_biases = rolled
+    else:
+        def partial(state):
+            last = len(state.placement.groups) - 1
+            real_gather(types.SimpleNamespace(
+                placement=state.placement, dp=state.dp,
+                positions=[p for p in state.positions if p.g != last]))
+        step_mod.gather_slices = partial
+    try:
+        yield
+    finally:
+        step_mod.sum_dp_grads, step_mod.gather_slices, TensorParallelStack.shard_biases = saved
+
+
+def check_distributed_bounds(meshes, ranks_rel=0.0):
+    """Phase 17's bounds, after the readings have printed: each mesh's
+    comparison with the unsharded step within them and each planted fault
+    past them; the two gloo ranks within DIST_RANKS_BOUND of the NCCL run."""
+
+    def within(c):
+        return (c["loss_rel"] <= DIST_LOSS_BOUND and c["mu_rel"] <= DIST_MU_BOUND
+                and c["mu_worst"][0] <= DIST_MU_WORST_BOUND
+                and c["delta_rel"] <= DIST_DELTA_BOUND)
+
+    for label, res in meshes.items():
+        if not within(res["compare_step"]):
+            raise AssertionError(f"phase 17 {label}: the sharded step is off the unsharded one "
+                                 f"{res['compare_step']} (bounds loss {DIST_LOSS_BOUND}, moments "
+                                 f"{DIST_MU_BOUND}, worst tensor's {DIST_MU_WORST_BOUND}, "
+                                 f"updates {DIST_DELTA_BOUND})")
+        passed = [k for k, c in res["planted"].items() if within(c)]
+        if passed:
+            raise AssertionError(f"phase 17 {label}: planted faults {passed} pass the bounds")
+    if not ranks_rel <= DIST_RANKS_BOUND:
+        raise AssertionError(f"phase 17c: two gloo ranks vs one NCCL rank: parameters "
+                             f"{ranks_rel} apart (bound {DIST_RANKS_BOUND})")
+
+
+def expected_position_bytes(state):
+    """Per position (g, j), the bytes that `lm_param_specs` / `zero1_specs`
+    give it, from the whole tensors' shapes: its tp block of each tensor
+    that tp splits, the tensors every shard uses whole on position 0 alone;
+    its moments (two fp32 per trained element) and the contiguous copies
+    of its parameters' dp slices split over dp where the spec says."""
+    from vampnet_tpu_torch.parallel import tp_dim
+    from vampnet_tpu_torch.parallel.train_placement import held_at
+
+    tp, dp = state.placement.tp, state.dp
+    g0 = state.placement.groups[0]
+    out = []
+    for pos in state.positions:
+        params = moments = masters = 0
+        for name in state.order:
+            if not held_at(name, pos.j):
+                continue
+            shape = list(g0.param(0, name).shape) if tp_dim(name) is None else \
+                list(g0.param(pos.j, name).shape)
+            n = math.prod(shape)
+            params += 4 * n
+            if name not in state.trained:
+                continue
+            spec = state.zspecs[name]
+            split = "dp" in spec and shape[spec.index("dp")] % dp == 0 and dp > 1
+            moments += 2 * 4 * (n // dp if split else n)
+            masters += 4 * n // dp if split else 0
+        out.append(dict(g=pos.g, j=pos.j, params=params, moments=moments, masters=masters))
+    return out
+
+
+def rank_job(label, rank, world, port, backend, n_positions, args_path, out_dir):
+    """One rank of phase 17c's jobs: join a `world`-rank job over `backend`
+    on localhost, run `train()` on `n_positions` positions of cuda:0, and
+    write the gathered parameters (rank 0) and each rank's launches and
+    step seconds under out_dir."""
+    import os
+
+    import torch
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                      RANK=str(rank))
+    import torch.distributed as dist
+
+    from vampnet_tpu_torch.ops import flash_attention as fa
+    from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits
+    from vampnet_tpu_torch.parallel import multihost_init
+    from vampnet_tpu_torch.train.loop import train
+
+    multihost_init(backend=backend)
+    with open(args_path) as f:
+        args = json.load(f)
+    args["save_path"] = os.path.join(out_dir, f"{label}_rank{rank}")
+    counters = (fa.attention_fwd_lse, fa.attention_bwd_fused, fa.flash_attention_with_bias,
+                fused_sample_from_logits)
+    for c in counters:
+        c.launches = 0
+    stats = {}
+    state = train(args, device="cuda", devices=["cuda:0"] * n_positions, stats=stats)
+    sd = state.state_dict()  # a collective: every rank
+    if rank == 0:
+        torch.save(sd["params"], os.path.join(out_dir, f"{label}_params.pt"))
+    with open(os.path.join(out_dir, f"{label}_rank{rank}.json"), "w") as f:
+        json.dump(dict(launches={c.__name__: c.launches for c in counters},
+                       step_ms=[s * 1e3 for s in stats["step_s"]], save_s=stats["save_s"],
+                       val_ms=[s * 1e3 for s in stats["val_s"]],
+                       sample_ms=[s * 1e3 for s in stats["sample_s"]],
+                       backend=dist.get_backend(), world=dist.get_world_size(),
+                       mesh=dict(state.placement.mesh.shape)), f)
+    dist.destroy_process_group()
+
+
+def distributed_training_phase(codec, codebooks, gen, card):
+    """Phase 17: distributed training on one card. (a) K4 and K8 at the
+    shard shapes of the sharded coarse step, against their plain versions,
+    timed beside their bounds and SDPA. (b) The full-width coarse step at
+    b=8 (20 layers, 20 heads, d=1280, fan-in random weights, 8 x 10 s
+    through the frozen codec) over meshes that repeat cuda:0, (dp, tp) =
+    (2, 2), (1, 4), (4, 1): a step on the draws of an unsharded step (dropout
+    off) compared with it (loss, first moments, updates) within bounds that
+    planted faults exceed, then 2 steps from the audio (dropout on) and a
+    profiled one; launches exact (K4 = K8 = 20 dp tp a step; K4 doubled
+    under remat, once at (2, 2)); each position's bytes of parameters,
+    moments and slices equal to the spec'd split. (c) `train()` on two gloo
+    ranks sharing cuda:0 (dp 2 over the ranks; full widths, 2 layers, b=4,
+    2 steps, validation and a save) against a one-rank NCCL job whose two
+    positions are the two dp groups. Returns (summary, kernel checks)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vampnet_tpu_torch import mask as pmask
+    from vampnet_tpu_torch.checkpoints import save_codec
+    from vampnet_tpu_torch.codec import LAC
+    from vampnet_tpu_torch.modules import LMConfig, VampNetLM
+    from vampnet_tpu_torch.ops import flash_attention as fa
+    from vampnet_tpu_torch.parallel import make_mesh
+    from vampnet_tpu_torch.parallel.mesh import _free_port
+    from vampnet_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from vampnet_tpu_torch.train.step import ShardedTrainState, make_sharded_train_step
+    from vampnet_tpu_torch.util import unflatten_tree
+
+    t_phase = time.perf_counter()
+    cfg = LMConfig.coarse(dropout=0.1)
+    cc = codec.config
+    t = math.ceil(10 * cc.sample_rate / cc.hop_length)
+    d_head = cfg.embedding_dim // cfg.n_heads
+    summary = {"card": card}
+
+    # ---- 17a: K4 and K8 at the shard shapes ----
+    checks = {"attention_fwd_lse": {}, "attention_bwd_fused": {}}
+    for b, h, mesh_label in ((4, 10, "dp 2 tp 2"), (8, 5, "tp 4"), (2, 20, "dp 4")):
+        res = check_attention_train(b, t, h, d_head, gen)
+        for name, r in res.items():
+            r = dict(r, shape=f"b={b} t={t} h={h} d={d_head} ({mesh_label})")
+            checks[name][f"b{b}_h{h}"] = r
+            print(f"kernel {name}[b={b} h={h}] (phase 17): " + json.dumps(r) + f"  [{card}]")
+
+    # ---- 17b: the full-width coarse step over meshes of cuda:0 ----
+    lm = VampNetLM(cfg, device="meta").to_empty(device="cuda")
+    lm.load_state_dict(random_state(lm, gen, fan_in=True))
+    sd0 = {k: v.clone() for k, v in lm.state_dict().items()}
+    audio = train_audio(cc.sample_rate, cc.hop_length, 10.0, TRAIN_BATCH)
+    cbs = codebooks[: cfg.n_codebooks]
+    opt = make_optimizer(cfg.embedding_dim)
+    with torch.no_grad():
+        z = codec.encode(audio)[:, : cfg.n_codebooks]
+    dgen = torch.Generator(device="cuda")
+    dgen.manual_seed(SEED)
+    r = torch.rand((TRAIN_BATCH,), generator=dgen, device="cuda")
+    mask = pmask.random(dgen, z, r)
+    counters = {"attention_fwd_lse": fa.attention_fwd_lse,
+                "attention_bwd_fused": fa.attention_bwd_fused,
+                "attention_fwd": fa.flash_attention_with_bias}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        made = {k: c.launches for k, c in counters.items()}
+        return out, made, (time.perf_counter() - t0) * 1e3, \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+
+    ref = TrainState.create(lm, opt)
+    (_, m_ref), made, wall, peak = counted(
+        lambda: make_train_step(lm, codec, opt).with_mask(ref, cbs, z, r, mask))
+    ref_loss = float(m_ref["loss"])
+    ref_mu = {n: ref.opt_state.adamw.state[p]["exp_avg"] for n, p in lm.named_parameters()}
+    ref_delta = {n: v - sd0[n] for n, v in lm.state_dict().items()}
+    summary["unsharded"] = dict(wall_ms=wall, peak_gib=peak, launches=made, loss=ref_loss,
+                                grad_norm=float(m_ref["grad_norm"]))
+    print("distributed unsharded step: " + json.dumps(summary["unsharded"]) + f"  [{card}]")
+    del ref, lm
+    torch.cuda.empty_cache()
+
+    def rel(xs, refs):
+        """The relative Frobenius error over every tensor, and the worst
+        tensor's."""
+        num = den = 0.0
+        worst = (-1.0, "")
+        for name, ref_x in refs.items():
+            x = xs[name].to(ref_x.device).float()
+            e2, r2 = float((x - ref_x).pow(2).sum()), float(ref_x.pow(2).sum())
+            num, den = num + e2, den + r2
+            worst = max(worst, ((e2 / max(r2, 1e-30)) ** 0.5, name))
+        return (num / den) ** 0.5, worst
+
+    def compare(state, metrics):
+        mu = state._gather(lambda pos: state._moment_lists(pos)[0])
+        params = state.params_state_dict()
+        mu_rel, mu_worst = rel(mu, ref_mu)
+        delta_rel, delta_worst = rel({n: params[n].cuda() - sd0[n] for n in params}, ref_delta)
+        return dict(loss_rel=abs(float(metrics["loss"]) - ref_loss) / ref_loss,
+                    mu_rel=mu_rel, mu_worst=list(mu_worst), delta_rel=delta_rel,
+                    delta_worst=list(delta_worst))
+
+    summary["meshes"] = {}
+    shard_launches = {}
+    for dp, tp in ((2, 2), (1, 4), (4, 1)):
+        label = f"dp{dp}_tp{tp}"
+        mesh = make_mesh(dp=dp, tp=tp, devices=["cuda:0"] * (dp * tp))
+        sstep = make_sharded_train_step(cfg, codec, opt)
+        want = {"attention_fwd_lse": 20 * dp * tp, "attention_bwd_fused": 20 * dp * tp,
+                "attention_fwd": 0}
+        t0 = time.perf_counter()
+        state = ShardedTrainState.create(cfg, mesh, sd0, opt)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        (_, m), made, wall, peak = counted(lambda: sstep.with_mask(state, cbs, z, r, mask))
+        if made != want:
+            raise AssertionError(f"phase 17 {label}: launches {made}, want {want}")
+        res = dict(setup_s=setup_s, compare_step=dict(wall_ms=wall, peak_gib=peak,
+                                                      **compare(state, m)))
+        used, spec = state.bytes_by_position(), expected_position_bytes(state)
+        if used != spec:
+            raise AssertionError(f"phase 17 {label}: bytes by position {used}, spec'd {spec}")
+        res["bytes_by_position"] = used
+        steps = []
+        for i in range(2):
+            sgen = torch.Generator(device="cuda")
+            sgen.manual_seed(SEED + 1 + i)
+            (_, m), made, wall, peak = counted(lambda: sstep(state, cbs, audio, sgen))
+            if made != want or not math.isfinite(float(m["loss"])):
+                raise AssertionError(f"phase 17 {label} step {i + 1}: launches {made}, "
+                                     f"loss {float(m['loss'])}")
+            steps.append(dict(wall_ms=wall, peak_gib=peak, loss=float(m["loss"]),
+                              grad_norm=float(m["grad_norm"])))
+        res["steps"] = steps
+        sgen = torch.Generator(device="cuda")
+        sgen.manual_seed(SEED + 3)
+        res["busy_ms"], res["device_activities"] = busy_ms(lambda: sstep(state, cbs, audio, sgen))
+        shard_launches[label] = want
+        kinds = (["dp_group_dropped", "zero1_slice_not_gathered"] if dp > 1 else []) + \
+            (["bias_heads_rolled"] if tp > 1 else [])
+        del state
+        torch.cuda.empty_cache()
+        res["planted"] = {}
+        for kind in kinds:
+            with planted_training_fault(kind):
+                state = ShardedTrainState.create(cfg, mesh, sd0, opt)
+                _, m = sstep.with_mask(state, cbs, z, r, mask)
+                res["planted"][kind] = compare(state, m)
+            del state
+            torch.cuda.empty_cache()
+        print(f"distributed {label}: " + json.dumps(res) + f"  [{card}]")
+        summary["meshes"][label] = res
+    check_distributed_bounds(summary["meshes"])
+
+    # remat through the tensor-parallel stack: K4 twice a layer
+    rcfg = LMConfig.coarse(dropout=0.1, remat=True)
+    mesh = make_mesh(dp=2, tp=2, devices=["cuda:0"] * 4)
+    state = ShardedTrainState.create(rcfg, mesh, sd0, opt)
+    sgen = torch.Generator(device="cuda")
+    sgen.manual_seed(SEED)
+    (_, m), made, wall, peak = counted(
+        lambda: make_sharded_train_step(rcfg, codec, opt)(state, cbs, audio, sgen))
+    want = {"attention_fwd_lse": 160, "attention_bwd_fused": 80, "attention_fwd": 0}
+    if made != want or not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"phase 17 remat dp2_tp2: launches {made}, want {want}")
+    summary["remat_dp2_tp2"] = dict(wall_ms=wall, peak_gib=peak, launches=made)
+    shard_launches["remat_dp2_tp2"] = want
+    print("distributed remat dp2_tp2: " + json.dumps(summary["remat_dp2_tp2"]) + f"  [{card}]")
+    del state, sd0, ref_mu, ref_delta
+    torch.cuda.empty_cache()
+
+    # ---- 17c: train() on two gloo ranks sharing cuda:0, and a one-rank
+    # NCCL job of two positions ----
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        root = Path(tmp)
+        write_training_wavs(root / "audio", cc.sample_rate, n_train=8, n_val=4, seconds=11.0)
+        codec_state = codec_weights(LAC(cc, device="meta"), gen)
+        save_codec(root / "codec.vtpu", cc,
+                   unflatten_tree({tuple(k.split(".")): v.cpu() for k, v in codec_state.items()}))
+        args = {"codec_ckpt": str(root / "codec.vtpu"), "num_iters": 2, "batch_size": 4,
+                "val_freq": 2, "sample_freq": 2, "save_iters": [], "num_workers": 2,
+                "VampNet.n_heads": cfg.n_heads, "VampNet.n_layers": 2,
+                "VampNet.n_codebooks": cfg.n_codebooks, "VampNet.embedding_dim": 1280,
+                "VampNet.vocab_size": 1024, "VampNet.latent_dim": 8,
+                "train/AudioLoader.sources": [str(root / "audio" / "train")],
+                "val/AudioLoader.sources": [str(root / "audio" / "val")],
+                "train/AudioDataset.n_examples": 32, "val/AudioDataset.n_examples": 16}
+        (root / "args.json").write_text(json.dumps(args))
+        jobs = [("gloo", 0, 2, "gloo", 1), ("gloo", 1, 2, "gloo", 1), ("nccl", 0, 1, "nccl", 2)]
+        ports = {"gloo": _free_port(), "nccl": _free_port()}
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=rank_job, args=(lab, rank, world, ports[lab], backend, npos,
+                                                     str(root / "args.json"), str(root)))
+                 for lab, rank, world, backend, npos in jobs]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=300)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        wall = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0, 0]:
+            raise AssertionError(f"phase 17c: rank processes exited with {codes}")
+        runs = {f"{lab}_rank{rank}": json.loads((root / f"{lab}_rank{rank}.json").read_text())
+                for lab, rank, *_ in jobs}
+        a = torch.load(root / "gloo_params.pt", weights_only=True)
+        b_ = torch.load(root / "nccl_params.pt", weights_only=True)
+        num = sum(float((a[k] - b_[k]).pow(2).sum()) for k in b_)
+        den = sum(float(b_[k].pow(2).sum()) for k in b_)
+        ranks_rel = (num / den) ** 0.5
+        per_step = {k: v["launches"] for k, v in runs.items()}
+        written = sorted(p.name for p in root.iterdir() if p.name.startswith(("gloo_rank",
+                                                                               "nccl_rank")))
+        res = dict(wall_s=wall, params_rel=ranks_rel, runs=runs, dirs=written,
+                   cut="2 of 20 layers, batch 4 (2 a rank), 2 steps")
+        summary["launches_ranks"] = per_step
+        print("distributed ranks: " + json.dumps(res) + f"  [{card}]")
+        # launches: 2 steps of 2 layers a dp group; K1 in validation's 4
+        # batches (2 layers a group) and the samples' 12 MaskGIT steps (dp
+        # group 0's forward, every rank), K10 in the samples
+        for key, groups in (("gloo_rank0", 1), ("gloo_rank1", 1), ("nccl_rank0", 2)):
+            want = {"attention_fwd_lse": 2 * 2 * groups, "attention_bwd_fused": 2 * 2 * groups,
+                    "flash_attention_with_bias": 4 * 2 * groups + 12 * 2,
+                    "fused_sample_from_logits": 12}
+            if per_step[key] != want:
+                raise AssertionError(f"phase 17c {key}: launches {per_step[key]}, want {want}")
+        check_distributed_bounds({}, ranks_rel)
+        if not (root / "gloo_rank0" / "latest" / "state" / "state.pt").exists() \
+                or (root / "gloo_rank1").exists():
+            raise AssertionError(f"phase 17c: the checkpoint is not rank 0's alone: {written}")
+        summary["ranks"] = res
+    summary["launches_per_step"] = shard_launches
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print("distributed-training phase: " + json.dumps(summary))
+    return summary, checks
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3910,6 +4321,11 @@ def main() -> int:
     # pipeline placement and sp (ring attention) over repeated cuda:0 ----
     multi, multi_checks = multi_device_phase(codec_cfg, gen, card)
 
+    # ---- 17. distributed training on one card: K4/K8 at the shard shapes,
+    # the full-width sharded step over meshes of cuda:0, train() on two
+    # gloo ranks ----
+    dist, dist_checks = distributed_training_phase(iface.codec, iface.codebooks, gen, card)
+
     def multi_launches(name):
         """The kernel's launches in each phase-16 path that ran it."""
         return {f"{group}/{path}": r["launches"][name]
@@ -3943,7 +4359,9 @@ def main() -> int:
              launches_vamp_microbatched={k: r["launches"]["attention_fwd"]
                                          for k, r in micro_runs.items()},
              multi_device_shapes=multi_checks["attention_fwd"],
-             launches_multi_device=multi_launches("attention_fwd")),
+             launches_multi_device=multi_launches("attention_fwd"),
+             launches_distributed_ranks={k: v["flash_attention_with_bias"]
+                                         for k, v in dist["launches_ranks"].items()}),
         dict(entry("attention_fwd_masked", "vampnet_tpu_torch/csrc/attention_fwd.cu",
                    "vampnet_tpu/ops/flash_attention.py:93", results["attention_fwd_masked"]),
              also_replaces="without a mask at 896 < t <= 1024: attention_fwd (K1) at t948",
@@ -3966,7 +4384,9 @@ def main() -> int:
              launches_vamp_microbatched={k: r["launches"]["sampler"]
                                          for k, r in micro_runs.items()},
              multi_device_shapes=multi_checks["sampler"],
-             launches_multi_device=multi_launches("sampler")),
+             launches_multi_device=multi_launches("sampler"),
+             launches_distributed_ranks={k: v["fused_sample_from_logits"]
+                                         for k, v in dist["launches_ranks"].items()}),
     ]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, replaces, also in (
@@ -3990,6 +4410,9 @@ def main() -> int:
             **({"registers": bwd_regs} if name == "attention_bwd_fused" else
                {"ring_attention": multi_checks["attention_fwd_lse"],
                 "launches_multi_device": multi_launches("attention_fwd_lse")}),
+            shard_shapes=dist_checks[name],
+            launches_per_sharded_step={k: v[name] for k, v in dist["launches_per_step"].items()},
+            launches_ranks={k: v[name] for k, v in dist["launches_ranks"].items()},
         ))
     for name, replaces, also in (
         ("attention_fwd_lse_masked", ":254",
@@ -4032,6 +4455,7 @@ def main() -> int:
     print("trainer summary: " + json.dumps(trainer))
     print("entry points summary: " + json.dumps(entry_points))
     print("multi-device summary: " + json.dumps(multi))
+    print("distributed-training summary: " + json.dumps(dist))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

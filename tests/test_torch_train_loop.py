@@ -297,11 +297,6 @@ def test_finetune_lora_only(data_and_codec, tmp_path):
     assert jcfg.lora_r == 2
 
 
-def test_more_than_one_device_raises(data_and_codec, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5, distributed training"):
-        train(_args(data_and_codec, tmp_path / "x", **{"mesh.dp": 2}), device="cpu")
-
-
 def _ckpt_state(scale, step):
     cfg = LMConfig(n_heads=2, n_layers=1, n_codebooks=2, latent_dim=4, embedding_dim=32,
                    vocab_size=32, compute_dtype="float32")

@@ -31,9 +31,10 @@ stack recomputes each layer in the backward (`torch.utils.checkpoint`)
 instead of keeping its activations, its dropout masks redrawn from a copy of
 the generator's state at the layer (`_remat_layer`).
 
-Two sharded stacks replace `TransformerStack` in an inference forward
-(`VampNetLM.forward(stack=)`, which `Interface.shard` sets up through
-`parallel/placement.py`):
+Two sharded stacks replace `TransformerStack` (`VampNetLM.forward(stack=)`,
+which `Interface.shard` sets up through `parallel/placement.py` for
+inference; the training placement, `parallel/train_placement.py`, runs a
+trainable `TensorParallelStack` with dropout and remat):
   * `TensorParallelStack`: the layers split Megatron-style over the devices
     of a tp group (`parallel/partition.py`): each shard holds h/tp heads of
     q, k, v with the matching columns of fc, and f = 2d/tp GEGLU units (its
@@ -143,9 +144,14 @@ def position_bias_from_params(model: "VampNetLM", t_q: int,
     """(heads, t_q, t_k) T5 bias from layer 0's bucket table, in the table's
     dtype. It depends only on the sequence length, so the serving path builds
     it once per request and hands it to every forward."""
-    cfg = model.config
+    return position_bias_from_table(model.transformer.layers_0.self_attn.relative_attention_bias,
+                                    model.config, t_q, t_k)
+
+
+def position_bias_from_table(table: torch.Tensor, cfg: LMConfig, t_q: int,
+                             t_k: Optional[int] = None) -> torch.Tensor:
+    """`position_bias_from_params` from the bucket table itself."""
     t_k = t_q if t_k is None else t_k
-    table = model.transformer.layers_0.self_attn.relative_attention_bias
     dev = table.device
     rel = (torch.arange(t_k, device=dev)[None, :]
            - torch.arange(t_q, device=dev)[:, None])
@@ -163,7 +169,11 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
     identity (the deterministic path)."""
     if generator is None or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return dropout_kept(x, torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p, p)
+
+
+def dropout_kept(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
+    """`dropout` with its draws given: x / (1 - p) where `keep`, else 0."""
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -248,10 +258,14 @@ class FeedForward(nn.Module):
         self.w_2 = LoRADense(units if row_parallel(cfg) else 2 * d_model, d_model, r=cfg.lora_r,
                              compute_dtype=cfg.dtype, quantize=quantize, device=device)
 
-    def hidden(self, x: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The gated hidden units p1 * gelu(p2), before w_2."""
+    def hidden(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The gated hidden units p1 * gelu(p2), before w_2; dropout drawn
+        from `generator`, or given as its `keep` mask (a tensor-parallel
+        shard's block of the units' draws)."""
         p1, p2 = self.w_1(x).chunk(2, dim=-1)
+        if keep is not None:
+            return dropout_kept(p1 * new_gelu(p2), keep, self.p)
         return dropout(p1 * new_gelu(p2), self.p, generator)
 
     def forward(self, x: torch.Tensor,
@@ -308,29 +322,34 @@ class TransformerLayer(nn.Module):
         return self.ffn_block(x, generator)
 
 
-def _remat_layer(layer: TransformerLayer, x: torch.Tensor, position_bias: torch.Tensor,
-                 generator: Optional[torch.Generator],
-                 x_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """`layer(x, ...)` under `torch.utils.checkpoint`: the backward recomputes
-    the layer. The recompute draws its dropout masks from a generator of its
-    own, set to the state the caller's generator had before the layer, so it
-    redraws the forward's masks (checkpoint's `preserve_rng_state` covers only
-    the default generators), and the caller's generator ends where it ends
-    without remat."""
+def _remat(fn, generator: Optional[torch.Generator], *inputs: torch.Tensor) -> torch.Tensor:
+    """`fn(generator, *inputs)` under `torch.utils.checkpoint`: the backward
+    recomputes it. The recompute draws its dropout masks from a generator of
+    its own, set to the state the caller's generator had before the call, so
+    it redraws the forward's masks (checkpoint's `preserve_rng_state` covers
+    only the default generators), and the caller's generator ends where it
+    ends without remat."""
     from torch.utils.checkpoint import checkpoint
 
     state = None if generator is None else generator.get_state()
     first = [True]
 
-    def run(x, position_bias):
+    def run(*inputs):
         gen = generator
         if gen is not None and not first[0]:
             gen = torch.Generator(device=generator.device)
             gen.set_state(state)
         first[0] = False
-        return layer(x, position_bias, gen, x_mask)
+        return fn(gen, *inputs)
 
-    return checkpoint(run, x, position_bias, use_reentrant=False, preserve_rng_state=False)
+    return checkpoint(run, *inputs, use_reentrant=False, preserve_rng_state=False)
+
+
+def _remat_layer(layer: TransformerLayer, x: torch.Tensor, position_bias: torch.Tensor,
+                 generator: Optional[torch.Generator],
+                 x_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """`layer(x, ...)` recomputed in the backward (`_remat`)."""
+    return _remat(lambda gen, x, pb: layer(x, pb, gen, x_mask), generator, x, position_bias)
 
 
 class TransformerStack(nn.Module):
@@ -396,59 +415,126 @@ def _shard_layers(lm: "VampNetLM", j: int, n: int, device: torch.device) -> list
     return layers
 
 
+# the adapters that every tensor-parallel shard multiplies whole: a column
+# site's lora_a (its inputs are whole) and a row site's lora_b (its outputs)
+REPLICATED_LORA = (("self_attn", "w_qs", "lora_a"), ("self_attn", "w_vs", "lora_a"),
+                   ("feed_forward", "w_1", "lora_a"), ("self_attn", "fc", "lora_b"),
+                   ("feed_forward", "w_2", "lora_b"))
+
+
 class TensorParallelStack:
     """`lm`'s layers split over `devices` (one tp group), with its final
-    norm on the first device: a stand-in for `lm.transformer` in an
-    inference forward, `stack(x, position_bias)` with x and the output on
-    the first device. Shard j holds heads [j h/n, (j+1) h/n) and GEGLU units
+    norm on the first device: a stand-in for `lm.transformer`,
+    `stack(x, position_bias, generator)` with x and the output on the first
+    device. Shard j holds heads [j h/n, (j+1) h/n) and GEGLU units
     [j f/n, (j+1) f/n) of each half of w_1 (`tp_shard_state_dict`). Without
     `row_parallel` (the int8 LMs) fc and w_2 run whole on the first device
-    on the heads' and units' outputs gathered in order."""
+    on the heads' and units' outputs gathered in order. RMSNorm runs once,
+    on the first device, with the first shard's scale.
+
+    Built two ways. `TensorParallelStack(lm, devices)` for inference: frozen
+    copies of `lm`'s shards. `TensorParallelStack.trainable(cfg, devices,
+    transformers)` for training, over the `transformer` modules of a
+    training placement's shards (`parallel/train_placement.py`): each holds
+    its blocks as parameters, and the first shard alone holds the tensors
+    every shard computes with whole (norm_1, norm_3, the final norm, the
+    bucket table, `REPLICATED_LORA`), which reach the other shards as
+    differentiable copies, so autograd sums their gradients into the one
+    parameter. A `generator` turns dropout on at the training forward's
+    three sites: the attention and FFN outputs, after their partial sums
+    (drawn once, on the first device), and the GEGLU hidden units, drawn
+    for all units on the first device and split by units, so that with the
+    unsharded stack's generator the draws are its own. With `cfg.remat` a
+    forward that records gradients recomputes each layer (`_remat`)."""
 
     def __init__(self, lm: "VampNetLM", devices):
-        cfg = lm.config
-        n = len(devices)
-        if cfg.n_heads % n or (2 * cfg.embedding_dim) % n:
-            raise ValueError(f"tp={n} must divide the {cfg.n_heads} heads and "
-                             f"{2 * cfg.embedding_dim} GEGLU units")
-        self.config = cfg
-        self.devices = [torch.device(d) for d in devices]
-        self.row_parallel = row_parallel(cfg)
+        self._setup(lm.config, devices)
         norm = lm.transformer.norm
         if norm.weight.device != self.devices[0]:
             import copy
 
             norm = copy.deepcopy(norm).to(self.devices[0])
         self.norm = norm
-        self.shards = [_shard_layers(lm, j, n, dev) for j, dev in enumerate(self.devices)]
+        self.shards = [_shard_layers(lm, j, self.n, dev) for j, dev in enumerate(self.devices)]
+        self.bound = []
 
-    def __call__(self, x: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
-        cfg, devs = self.config, self.devices
-        n, h = len(devs), cfg.n_heads // len(devs)
-        dt, home = x.dtype, devs[0]
-        # each shard's heads of the bias: a contiguous block of its rows
-        biases = [position_bias[j * h:(j + 1) * h].to(dev) for j, dev in enumerate(devs)]
-        for i in range(cfg.n_layers):
-            layers = [shard[i] for shard in self.shards]
-            outs = [lay.self_attn.attend(lay.norm_1(x.to(dev)), bias)
-                    for lay, dev, bias in zip(layers, devs, biases)]
-            if self.row_parallel:
-                a = _sum_on([lay.self_attn.fc(o) for lay, o in zip(layers, outs)], home, dt)
+    @classmethod
+    def trainable(cls, cfg: LMConfig, devices, transformers) -> "TensorParallelStack":
+        self = cls.__new__(cls)
+        self._setup(cfg, devices)
+        self.norm = transformers[0].norm
+        self.shards = [[getattr(t, f"layers_{i}") for i in range(cfg.n_layers)]
+                       for t in transformers]
+        # (shard j's module, leaf, shard 0's parameter) for each replicated
+        # adapter of the other shards, copied to them at every forward
+        self.bound = []
+        for i in range(cfg.n_layers * bool(cfg.lora_r)):
+            for shard in self.shards[1:]:
+                for part, site, leaf in REPLICATED_LORA:
+                    module = getattr(getattr(shard[i], part), site)
+                    home = getattr(getattr(self.shards[0][i], part), site)
+                    self.bound.append((module, leaf, getattr(home, leaf)))
+        return self
+
+    def _setup(self, cfg: LMConfig, devices) -> None:
+        n = len(devices)
+        if cfg.n_heads % n or (2 * cfg.embedding_dim) % n:
+            raise ValueError(f"tp={n} must divide the {cfg.n_heads} heads and "
+                             f"{2 * cfg.embedding_dim} GEGLU units")
+        self.config, self.n = cfg, n
+        self.devices = [torch.device(d) for d in devices]
+        self.row_parallel = row_parallel(cfg)
+
+    def shard_biases(self, position_bias: torch.Tensor) -> list:
+        """Each shard's heads of the bias, a contiguous block of its rows, on
+        the shard's device."""
+        h = self.config.n_heads // self.n
+        return [position_bias[j * h:(j + 1) * h].to(dev) for j, dev in enumerate(self.devices)]
+
+    def __call__(self, x: torch.Tensor, position_bias: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for module, leaf, param in self.bound:
+            setattr(module, leaf, param.to(module.weight.device))
+        biases = self.shard_biases(position_bias)
+        remat = self.config.remat and torch.is_grad_enabled()
+        for i in range(self.config.n_layers):
+            if remat:
+                x = _remat(lambda gen, x, *bs, i=i: self._layer(i, x, bs, gen), generator, x,
+                           *biases)
             else:
-                a = layers[0].self_attn.fc(torch.cat([o.to(home) for o in outs], dim=-1))
-            x = x + a
-            if layers[0].fused_ffn:
-                # the residual once: shard 0's kernel adds x, the others do not
-                x = _sum_on([lay.fused(x.to(dev), residual=j == 0)
-                             for j, (lay, dev) in enumerate(zip(layers, devs))], home, dt)
-                continue
-            gs = [lay.feed_forward.hidden(lay.norm_3(x.to(dev))) for lay, dev in zip(layers, devs)]
-            if self.row_parallel:
-                y = _sum_on([lay.feed_forward.w_2(g) for lay, g in zip(layers, gs)], home, dt)
-            else:
-                y = layers[0].feed_forward.w_2(torch.cat([g.to(home) for g in gs], dim=-1))
-            x = x + y
+                x = self._layer(i, x, biases, generator)
         return self.norm(x)
+
+    def _layer(self, i: int, x: torch.Tensor, biases, generator) -> torch.Tensor:
+        cfg, devs, p = self.config, self.devices, self.config.dropout
+        dt, home = x.dtype, devs[0]
+        layers = [shard[i] for shard in self.shards]
+        h = layers[0].norm_1(x)
+        outs = [lay.self_attn.attend(h.to(dev), bias)
+                for lay, dev, bias in zip(layers, devs, biases)]
+        if self.row_parallel:
+            a = _sum_on([lay.self_attn.fc(o) for lay, o in zip(layers, outs)], home, dt)
+        else:
+            a = layers[0].self_attn.fc(torch.cat([o.to(home) for o in outs], dim=-1))
+        x = x + dropout(a, p, generator)
+        if layers[0].fused_ffn:
+            if generator is not None:
+                raise ValueError("ffn_impl='fused' needs no dropout generator, lora_r=0, no int8")
+            # the residual once: shard 0's kernel adds x, the others do not
+            return _sum_on([lay.fused(x.to(dev), residual=j == 0)
+                            for j, (lay, dev) in enumerate(zip(layers, devs))], home, dt)
+        h = layers[0].norm_3(x)
+        keeps = [None] * self.n
+        if generator is not None and p != 0.0:
+            keep = torch.rand((*h.shape[:-1], 2 * cfg.embedding_dim), generator=generator,
+                              device=home) < 1.0 - p
+            keeps = [k.to(dev) for k, dev in zip(keep.chunk(self.n, dim=-1), devs)]
+        gs = [lay.feed_forward.hidden(h.to(dev), keep=k) for lay, dev, k in zip(layers, devs, keeps)]
+        if self.row_parallel:
+            y = _sum_on([lay.feed_forward.w_2(g) for lay, g in zip(layers, gs)], home, dt)
+        else:
+            y = layers[0].feed_forward.w_2(torch.cat([g.to(home) for g in gs], dim=-1))
+        return x + dropout(y, p, generator)
 
 
 class RingStack:
@@ -611,11 +697,11 @@ class VampNetLM(nn.Module):
         the controls' CFG dropout) on (training) and its draws come from it;
         without one the forward is deterministic. An LM with `ctrl_dims`
         takes `ctrls` and `ctrl_masks`, one entry per control. `stack` (a
-        `TensorParallelStack` or a `RingStack`) runs the layers in place of
-        `self.transformer`, in an inference forward."""
+        `TensorParallelStack`, which takes the generator, or a `RingStack`,
+        inference only) runs the layers in place of `self.transformer`."""
         cfg = self.config
-        if stack is not None and generator is not None:
-            raise ValueError("a sharded stack runs inference forwards only (no generator)")
+        if isinstance(stack, RingStack) and generator is not None:
+            raise ValueError("a ring stack runs inference forwards only (no generator)")
         if position_bias is None and not isinstance(stack, RingStack):
             position_bias = position_bias_from_params(self, latents.shape[1])
         x = self.embedding(latents)
@@ -623,7 +709,9 @@ class VampNetLM(nn.Module):
             x = x + self.ctrl_encoder(x, ctrls, ctrl_masks, generator)
         elif ctrls is not None:
             raise ValueError("controls given to an LM without ctrl_dims")
-        if stack is not None:
+        if isinstance(stack, TensorParallelStack):
+            out = stack(x, position_bias, generator)
+        elif stack is not None:
             out = stack(x, position_bias)
         else:
             out = self.transformer(x, position_bias, generator)

@@ -13,13 +13,16 @@ CPU with `["cpu"] * 8`). Copies between two positions on one device are
 free.
 
 `multihost_init` joins a multi-process job (`torch.distributed`, NCCL on
-CUDA, gloo on the CPU) for the cross-process axis of distributed training.
+CUDA, gloo on the CPU) for the cross-process axis of distributed training:
+`make_train_mesh` lays a training job's ("dp", "tp") mesh over the ranks,
+`process_index` / `process_count` stand for `jax.process_index` /
+`jax.process_count`.
 """
 from __future__ import annotations
 
 import os
 import socket
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +36,15 @@ def _device(d) -> torch.device:
 
 
 class Mesh:
-    """Devices in an array with one named axis per dimension."""
+    """Devices in an array with one named axis per dimension.
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    `devices` are this process's positions. With `process=(rank, world)`
+    (a training job of `world` processes) the first axis, "dp", extends over
+    every process, rank-major as JAX orders the devices of its processes:
+    `shape["dp"]` is the global count and this process holds rows
+    [`dp_offset`, `dp_offset` + its rows)."""
+
+    def __init__(self, devices, axis_names: Sequence[str], process: Tuple[int, int] = (0, 1)):
         arr = np.empty(np.shape(devices), dtype=object)
         flat = [_device(d) for d in np.asarray(devices, dtype=object).reshape(-1)]
         arr.reshape(-1)[:] = flat
@@ -43,7 +52,11 @@ class Mesh:
             raise ValueError(f"{arr.ndim}-d devices for axes {tuple(axis_names)}")
         self.devices = arr
         self.axis_names = tuple(axis_names)
+        self.process = tuple(process)
+        rank, world = self.process
         self.shape = dict(zip(self.axis_names, arr.shape))
+        self.shape[self.axis_names[0]] *= world
+        self.dp_offset = rank * arr.shape[0]
 
     @property
     def size(self) -> int:
@@ -54,7 +67,7 @@ class Mesh:
         return list(self.devices.reshape(-1))
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, {[str(d) for d in self.device_list()]})"
+        return f"Mesh({self.shape}, {[str(d) for d in self.device_list()]}, process={self.process})"
 
 
 def default_devices():
@@ -77,6 +90,46 @@ def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None, tp: int
     arr = np.empty(n, dtype=object)
     arr[:] = devices
     return Mesh(arr.reshape(dp, tp), ("dp", "tp"))
+
+
+def make_train_mesh(dp: int, tp: int, devices, process: Optional[Tuple[int, int]] = None) -> Mesh:
+    """The ("dp", "tp") mesh of a training job: `dp` rows of `tp` positions
+    over every process (`process=(rank, world)`, by default the live
+    `torch.distributed` group's), this process's dp / world rows on its
+    `devices`, which must number exactly dp * tp / world."""
+    rank, world = (process_index(), process_count()) if process is None else process
+    devices = list(devices)
+    if dp % world:
+        raise ValueError(f"dp={dp} does not divide over {world} processes")
+    if len(devices) != dp // world * tp:
+        raise ValueError(f"{len(devices)} positions in this process for dp={dp} x tp={tp} "
+                         f"over {world} processes: want {dp // world * tp}")
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = devices
+    return Mesh(arr.reshape(dp // world, tp), ("dp", "tp"), process=(rank, world))
+
+
+def process_index() -> int:
+    """This process's rank in the job (`jax.process_index`): 0 outside one."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The number of processes in the job (`jax.process_count`)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def dp_group():
+    """The process group of the cross-process dp axis: every rank of the job
+    (each process holds whole tp groups), i.e. the default group; None
+    outside a job."""
+    import torch.distributed as dist
+
+    return dist.group.WORLD if process_count() > 1 else None
 
 
 def make_sp_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
@@ -126,13 +179,16 @@ def _free_port() -> int:
 
 def multihost_init(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None, process_id: Optional[int] = None,
-                   local_device_ids=None) -> tuple:
+                   local_device_ids=None, backend: Optional[str] = None) -> tuple:
     """Join the process group and return `(rank, world_size)`.
 
     Explicit arguments win; otherwise `_multihost_args_from_env` is read;
     with neither, the process is a world of one on a free localhost port.
-    The backend is NCCL where CUDA is available and gloo otherwise.
-    `local_device_ids[0]` becomes this process's CUDA device.
+    The backend is NCCL where CUDA is available and gloo otherwise, unless
+    `backend` names one (gloo takes CUDA tensors in the all_reduce and
+    broadcast that the trainer uses, so two ranks can share one card).
+    `local_device_ids[0]` becomes this process's CUDA device, else torchrun's
+    `LOCAL_RANK` where it is set.
     Idempotent: a second call returns the live `(rank, world_size)`, and
     raises if its explicit rank or world size disagrees with it."""
     global _MULTIHOST_STATE
@@ -156,7 +212,10 @@ def multihost_init(coordinator_address: Optional[str] = None,
         or f"localhost:{_free_port()}"
     n = num_processes if num_processes is not None else env_args["num_processes"]
     pid = process_id if process_id is not None else env_args["process_id"]
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if local_device_ids is None and "LOCAL_RANK" in os.environ:
+        local_device_ids = [int(os.environ["LOCAL_RANK"])]
     if local_device_ids is not None and torch.cuda.is_available():
         torch.cuda.set_device(int(list(local_device_ids)[0]))
     dist.init_process_group(backend=backend, init_method=f"tcp://{addr}",

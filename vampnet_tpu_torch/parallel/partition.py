@@ -1,13 +1,16 @@
 """Parameter partition specs for the VampNet LM (counterpart of
 `vampnet_tpu/parallel/partition.py`), and the tensor-parallel shards that
-`Interface.shard` cuts from them.
+`Interface.shard` and the training placement (`train_placement.py`) cut
+from them (`tp_slice`, `tp_gather`).
 
 Megatron-style tensor parallel over the "tp" axis: the q/k/v projections
 and the FFN's w_1 split their output features (heads, hidden units), the
 attention output (fc) and the FFN's w_2 their input features, so each head
 and each hidden unit lives on one shard and a block ends in one sum. Norms,
-biases, the bucket table and the adapters are replicated. ZeRO-1 splits the
-Adam moments over "dp" on top of a parameter's tp split.
+biases, the bucket table and the adapters are replicated (a shard computes
+with its block of a column site's `lora_b` and a row site's `lora_a`).
+ZeRO-1 splits the Adam moments over "dp" on top of a parameter's tp split
+(the slices are `train/step.py`'s `ShardedTrainState`'s).
 
 The specs are keyed by the port's state-dict names and written in the
 port's layout: a Dense `weight` is (out, in), the transpose of the JAX
@@ -17,7 +20,7 @@ site splits with the weight's rows.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -121,30 +124,60 @@ def _split(x: torch.Tensor, dim: int, j: int, n: int, paired: bool) -> torch.Ten
     return torch.cat([h.chunk(n, dim=dim)[j] for h in halves], dim=dim)
 
 
+def tp_dim(name, row_parallel: bool = True) -> Optional[Tuple[int, bool]]:
+    """(dimension, paired) along which a tp shard holds its block of the
+    tensor `name`, or None where every shard computes with it whole (the
+    tensors kept once per tp group). The dimension `lm_param_specs` splits
+    over "tp" (the classifier's and the codebook projection's outputs
+    too), with w_1's value and gate halves split alike; a column site's
+    `lora_b` splits with its outputs and a row site's `lora_a` with its
+    inputs. Without `row_parallel` the row sites (fc, w_2) stay whole."""
+    path = _keys(name)
+    if path[-1] == "relative_attention_bias":
+        return None
+    site, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
+    paired = site == "w_1"
+    if site in _COL and leaf == "lora_b":
+        return 1, paired
+    if site in _ROW and leaf == "lora_a":
+        return (0, False) if row_parallel else None
+    spec = _spec_for_path(path)
+    if "tp" in spec and (site not in _ROW or row_parallel):
+        return spec.index("tp"), paired
+    return None
+
+
+def tp_slice(name, x: torch.Tensor, j: int, n: int, row_parallel: bool = True) -> torch.Tensor:
+    """Shard j of n of the whole tensor `name` (`tp_dim`), or x itself
+    where the shards compute with it whole. A view of x where it can be."""
+    where = tp_dim(name, row_parallel)
+    return x if where is None or n == 1 else _split(x, where[0], j, n, where[1])
+
+
+def tp_gather(name, parts, row_parallel: bool = True) -> torch.Tensor:
+    """The whole tensor `name` from its n tp shards in order (the inverse of
+    `tp_slice`), or the first shard's where they hold it whole."""
+    where = tp_dim(name, row_parallel)
+    if where is None or len(parts) == 1:
+        return parts[0]
+    dim, paired = where
+    if not paired:
+        return torch.cat(list(parts), dim=dim)
+    halves = [p.chunk(2, dim=dim) for p in parts]
+    return torch.cat([h[0] for h in halves] + [h[1] for h in halves], dim=dim)
+
+
 def tp_shard_state_dict(state_dict: Mapping[str, torch.Tensor], j: int, n: int,
                         row_parallel: bool = True) -> Dict[str, torch.Tensor]:
     """Shard j of n of the transformer layers' tensors (the names under
     `transformer.layers_`, keys unchanged, the bucket table left out), as
-    the shard's modules compute with them: the dimension `lm_param_specs`
-    splits over "tp", with w_1's value and gate halves split alike; a column
-    site's `lora_b` splits with its outputs and a row site's `lora_a` with
-    its inputs (the adapters are stored replicated; a shard computes its
-    part of their product). With `row_parallel=False` the row sites (fc,
-    w_2) stay whole. Slices are views of `state_dict`'s tensors."""
+    the shard's modules compute with them (`tp_slice`). Slices are views
+    of `state_dict`'s tensors."""
     out = {}
     for name, x in state_dict.items():
         path = _keys(name)
         if path[0] != "transformer" or not path[1].startswith("layers_") \
                 or path[-1] == "relative_attention_bias":
             continue
-        site, leaf = path[-2], path[-1]
-        paired = site == "w_1"
-        spec = _spec_for_path(path)
-        if site in _COL and leaf == "lora_b":
-            x = _split(x, 1, j, n, paired)
-        elif site in _ROW and leaf == "lora_a" and row_parallel:
-            x = _split(x, 0, j, n, False)
-        elif "tp" in spec and (site in _COL or row_parallel):
-            x = _split(x, spec.index("tp"), j, n, paired)
-        out[name] = x
+        out[name] = tp_slice(name, x, j, n, row_parallel)
     return out

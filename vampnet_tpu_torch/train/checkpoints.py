@@ -19,6 +19,14 @@ replacement commits. save() renames `state/` to `state.prev/` (with a paired
 prev copy removed. A crash in between leaves `state.prev/` restorable:
 has_tag() and restore() fall back to it.
 
+A job of several processes (`torch.distributed`) saves collectively:
+every rank calls save(), which first waits at a barrier (so no rank gathers
+while rank 0 still moves the old tag's files), then gathers the sharded
+state to whole tensors (`ShardedTrainState.state_dict`, a collective), and
+only the main rank (`is_main`) touches the files. The files have the
+single-card layout whatever the mesh, so a run resumes on any mesh (restore
+returns whole tensors, which `load_state_dict` cuts again).
+
 save() copies the state, and the LM in the `.vtpu` layout, into host
 buffers that the manager keeps for the next save (pinned for a card's
 tensors: one copy wave and one synchronize). With `async_save`, save()
@@ -64,9 +72,18 @@ def _rebuild(tree: Any, leaves: dict, prefix: str = "") -> Any:
     return leaves[prefix]
 
 
+def _barrier(name: str) -> None:
+    """Every rank of a job reaches this point before any goes on."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 class CheckpointManager:
-    def __init__(self, save_path, async_save: bool = False):
+    def __init__(self, save_path, is_main: bool = True, async_save: bool = False):
         self.root = Path(save_path).absolute()
+        self.is_main = is_main
         self.async_save = async_save
         # host copies of the saved tensors, by path, reused by every save
         # (pinned for a card's tensors: one fast copy wave)
@@ -104,8 +121,13 @@ class CheckpointManager:
 
     def save(self, tag: str, state, lm_config, tracker_state: Optional[dict] = None,
              fine_tune: bool = False) -> None:
-        """Save `state` (a `TrainState`) under `tag`."""
+        """Save `state` (a `TrainState` or a `ShardedTrainState`) under
+        `tag`; in a job, on every rank (module docstring)."""
         self.wait_until_finished()
+        _barrier(f"ckpt-save-{tag}")
+        if not self.is_main:
+            state.state_dict()  # the gather is a collective: join it
+            return
         tag_dir = self.root / tag
         state_dir, prev_dir = tag_dir / "state", tag_dir / "state.prev"
         tag_dir.mkdir(parents=True, exist_ok=True)

@@ -22,8 +22,22 @@ start from the JAX package's initialisers (lecun-normal kernels, unit norm
 scales, zero biases, normal bucket tables and MASK latents, He-uniform
 `lora_a`, zero `lora_b`), drawn from the seed.
 
-One card only: `mesh.dp: null` and `mesh.tp: 1` (the configs' defaults)
-mean one device, and a larger `mesh.dp * mesh.tp` raises.
+Distributed training, as the JAX loop reads `mesh.dp` / `mesh.tp`: the
+positions are `train(devices=)`, the stand-in for `jax.devices()` (by
+default every visible card, or this process's card in a job of several),
+and may repeat a device (`["cuda:0"] * 4`, four positions on one card). A
+null `mesh.dp` is the largest divisor of the batch among the positions
+(over every process) divided by tp. Past one position the state is a
+`ShardedTrainState` over a ("dp", "tp") mesh (`make_sharded_train_step`:
+tensor parallel within a dp group, the batch's rows over the groups, ZeRO-1
+moments over dp). In a job of several processes (`main()` joins one when
+`JAX_COORDINATOR_ADDRESS` or `MASTER_ADDR` is set, as under `torchrun`),
+dp extends over the ranks: each rank loads its rows of every global batch
+(`BatchLoader(shard=)`), the step and validation seeds are the same on
+every rank, validation's metrics are the global batch's (so `is_best`
+agrees), samples are computed by every rank, and rank 0 alone writes files
+(checkpoints, metrics, samples, args.yml). With one position it is the
+single-card `TrainState` of before.
 """
 from __future__ import annotations
 
@@ -42,10 +56,12 @@ from ..codec import LAC
 from ..convert import codec_state_dict_from_jax, lm_state_dict_from_jax
 from ..interface import _load
 from ..modules import LMConfig, VampNetLM
+from ..parallel import make_mesh, make_train_mesh, process_count, process_index
 from ..util import codebook_flatten, resolve_device, to_device
 from .checkpoints import CheckpointManager
 from .datasets import AudioDataset, AudioLoader, BatchLoader
-from .step import TrainState, lora_filter, loss_and_metrics, make_optimizer, make_train_step
+from .step import (ShardedTrainState, TrainState, lora_filter, loss_and_metrics, make_optimizer,
+                   make_sharded_train_step, make_train_step)
 from .tracker import Tracker
 
 
@@ -97,14 +113,63 @@ def build_datasets(args, sample_rate: int):
     return build("train"), build("val")
 
 
-def _check_mesh(args) -> None:
-    dp = args.get("mesh.dp")
+def _encode_microbatch(args, dp: int):
+    """The `encode_microbatch` knob: single-mesh only. At dp > 1 the groups
+    already divide the encode batch (the memory this knob saves shrinks with
+    it), so it is dropped, loudly (the user set it because the full-batch
+    encode ran out of memory)."""
+    mb = args.get("encode_microbatch")
+    if not mb:
+        return None
+    if dp > 1:
+        import warnings
+
+        warnings.warn(
+            f"encode_microbatch={mb} ignored: single-mesh only and dp={dp} "
+            "already divides the per-chip encode batch"
+        )
+        return None
+    return int(mb)
+
+
+def _positions(device: torch.device, world: int) -> list:
+    """The default mesh positions: every visible card (the CPU on the CPU),
+    or in a job of several processes this process's own device."""
+    if device.type == "cuda" and world == 1:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if device.type == "cuda":
+        return [torch.device("cuda", torch.cuda.current_device())]
+    return [device]
+
+
+def build_mesh(args, batch_size: int, positions: list):
+    """The ("dp", "tp") mesh from `mesh.dp` / `mesh.tp`, as the JAX loop
+    builds it over `jax.devices()` (`positions` this process's, over every
+    rank of the job)."""
+    rank, world = process_index(), process_count()
     tp = int(args.get("mesh.tp", 1) or 1)
-    dp = 1 if dp is None else int(dp)
-    if dp * tp > 1:
-        raise NotImplementedError(
-            f"mesh.dp={dp} x mesh.tp={tp}: the port trains on one card; "
-            "ROADMAP Queue A item 5, distributed training")
+    n_global = len(positions) * world
+    dp_req = args.get("mesh.dp")
+    if dp_req is None:
+        # the largest dp that divides the batch (unused positions dropped,
+        # single-process only, as below)
+        dp_req = n_global // tp
+        while dp_req > 1 and batch_size % dp_req != 0:
+            dp_req -= 1
+    dp_req = int(dp_req)
+    if world > 1 and dp_req * tp != n_global:
+        raise ValueError(
+            f"multi-host mesh must use every device: dp*tp = {dp_req}*{tp} "
+            f"!= {n_global} global devices (pick batch_size/"
+            "mesh.dp/mesh.tp so they multiply out)"
+        )
+    if world > 1:
+        mesh = make_train_mesh(dp_req, tp, positions, (rank, world))
+    else:
+        mesh = make_mesh(n_devices=dp_req * tp, dp=dp_req, tp=tp, devices=positions)
+    dp = mesh.shape["dp"]
+    assert batch_size % dp == 0, f"batch_size {batch_size} not divisible by dp {dp}"
+    return mesh
 
 
 @torch.no_grad()
@@ -193,13 +258,18 @@ def _next_batch(it, make_loader):
         return it, next(it)
 
 
-def train(args: dict, seed: int = 0, device="cuda", stats: Optional[dict] = None) -> TrainState:
-    """Train as the args say and return the final `TrainState`. With
-    `stats`, a dict, the loop fills it with host-clock seconds: `step_s`
-    (per step, from the batch's upload to its metrics on the host),
-    `loader_wait_s` (per step, the host waiting for the loader), `save_s`,
-    `val_s` and `sample_s` (per call)."""
+def train(args: dict, seed: int = 0, device="cuda", stats: Optional[dict] = None,
+          devices=None):
+    """Train as the args say and return the final `TrainState` (one
+    position) or `ShardedTrainState`. `devices`, the mesh positions of this
+    process (module docstring), default to `device`'s kind: every visible
+    card, or the CPU. With `stats`, a dict, the loop fills it with
+    host-clock seconds: `step_s` (per step, from the batch's upload to its
+    metrics on the host), `loader_wait_s` (per step, the host waiting for
+    the loader), `save_s`, `val_s` and `sample_s` (per call)."""
     device = resolve_device(device)
+    rank, world = process_index(), process_count()
+    is_main = rank == 0
     save_path = Path(args.get("save_path", "ckpt"))
     fine_tune = bool(args.get("fine_tune", False))
     num_iters = int(args.get("num_iters", 1000))
@@ -212,7 +282,12 @@ def train(args: dict, seed: int = 0, device="cuda", stats: Optional[dict] = None
     label_smoothing = float(args.get("CrossEntropyLoss.label_smoothing", 0.1))
     resume = bool(args.get("resume", False))
     tag = args.get("tag", "latest")
-    _check_mesh(args)
+    positions = [resolve_device(d) for d in devices] if devices is not None \
+        else _positions(device, world)
+    mesh = build_mesh(args, batch_size, positions)
+    dp = mesh.shape["dp"]
+    sharded = mesh.size > 1 or world > 1
+    device = mesh.device_list()[0]
     stats = {} if stats is None else stats
     for key in ("step_s", "loader_wait_s", "save_s", "val_s", "sample_s"):
         stats.setdefault(key, [])
@@ -227,6 +302,8 @@ def train(args: dict, seed: int = 0, device="cuda", stats: Optional[dict] = None
     if lm_cfg.vocab_size != codec_cfg.codebook_size:
         raise ValueError(f"vocab size {lm_cfg.vocab_size} must match the codec's codebook "
                          f"size {codec_cfg.codebook_size}")
+    # the whole LM on the first position (each rank draws it alike), cut
+    # over the mesh below
     lm = _build_lm(args, lm_cfg, fine_tune, seed, device)
     codebooks = codec.codebook_tables()[: lm_cfg.n_codebooks].detach()
 
@@ -238,16 +315,28 @@ def train(args: dict, seed: int = 0, device="cuda", stats: Optional[dict] = None
         lora_filter=lora_filter(lm) if fine_tune else None,
         state_dtype=args.get("AdamW.state_dtype"),
     )
-    state = TrainState.create(lm, optimizer)
-    mb = args.get("encode_microbatch")  # serial encode sub-batches of this many rows
-    train_step = make_train_step(lm, codec, optimizer, label_smoothing=label_smoothing,
-                                 controller=controller, encode_microbatch=int(mb) if mb else None)
-    eval_step = make_eval_step(lm, codec, codebooks, label_smoothing, controller)
+    mb = _encode_microbatch(args, dp)  # serial encode sub-batches of this many rows
+    if sharded:
+        state = ShardedTrainState.create(lm_cfg, mesh, lm.state_dict(), optimizer)
+        del lm
+        lm = state.placement.groups[0]  # the samples' forward: dp group 0
+        train_step = make_sharded_train_step(lm_cfg, codec, optimizer, label_smoothing,
+                                             controller=controller, encode_microbatch=mb)
+
+        def eval_step(audio, generator):
+            return train_step.eval_step(state, codebooks, audio, generator)
+    else:
+        state = TrainState.create(lm, optimizer)
+        train_step = make_train_step(lm, codec, optimizer, label_smoothing=label_smoothing,
+                                     controller=controller, encode_microbatch=mb)
+        eval_step = make_eval_step(lm, codec, codebooks, label_smoothing, controller)
 
     # ----- data, tracker, checkpoints, resume -----
     train_data, val_data = build_datasets(args, codec_cfg.sample_rate)
-    tracker = Tracker(log_dir=str(save_path / "tb"), log_file=str(save_path / "metrics.jsonl"))
-    ckpt = CheckpointManager(save_path, async_save=bool(args.get("save_async", False)))
+    tracker = Tracker(log_dir=str(save_path / "tb"), log_file=str(save_path / "metrics.jsonl"),
+                      rank=rank)
+    ckpt = CheckpointManager(save_path, is_main=is_main,
+                             async_save=bool(args.get("save_async", False)))
 
     saved_latest = [None]  # the step the latest tag holds
 
@@ -265,14 +354,22 @@ def train(args: dict, seed: int = 0, device="cuda", stats: Optional[dict] = None
         if tracker_state:
             tracker.load_state_dict(tracker_state)
         print(f"resumed from {save_path}/{tag} at step {state.step}", flush=True)
-    cfglib.dump_args(args, save_path / "args.yml")
+    if is_main:
+        cfglib.dump_args(args, save_path / "args.yml")
     start_step = state.step
+    # the seeds are the same on every rank: each draws the global batch's r
+    # and masks alike and keeps its rows; only the data is per rank
     step_rng = np.random.default_rng(seed)
+    # validation too: `is_best` decides the "best" save, which every rank
+    # joins
     val_rng = np.random.default_rng(seed + 1)
     gen = torch.Generator(device=device)
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} not divisible by {world} hosts")
 
     def make_loader(start_idx=0):
-        return BatchLoader(train_data, batch_size, num_workers=num_workers, start_idx=start_idx)
+        return BatchLoader(train_data, batch_size, num_workers=num_workers, start_idx=start_idx,
+                           shard=(rank, world))
 
     it = iter(make_loader(start_step * batch_size))
     t_last = time.time()
@@ -297,12 +394,13 @@ def train(args: dict, seed: int = 0, device="cuda", stats: Optional[dict] = None
             if sample_freq and (step_i + 1) % sample_freq == 0:
                 t0 = time.perf_counter()
                 save_samples(lm, codec, codebooks, audio, save_path, tracker, step_i + 1,
-                             controller=controller)
+                             controller=controller, is_main=is_main)
                 stats["sample_s"].append(time.perf_counter() - t0)
 
             if val_freq and (step_i + 1) % val_freq == 0:
                 t0 = time.perf_counter()
-                val_metrics = validate(eval_step, val_data, batch_size, val_rng, device)
+                val_metrics = validate(eval_step, val_data, batch_size, val_rng, device,
+                                       shard=(rank, world))
                 stats["val_s"].append(time.perf_counter() - t0)
                 tracker.log("val", val_metrics)
                 tracker.print_status("val")
@@ -324,10 +422,12 @@ def train(args: dict, seed: int = 0, device="cuda", stats: Optional[dict] = None
 @torch.no_grad()
 def save_samples(lm: VampNetLM, codec: LAC, codebooks: torch.Tensor, audio: torch.Tensor,
                  save_path, tracker: Tracker, step: int, n_save: int = 4,
-                 controller=None) -> None:
+                 controller=None, is_main: bool = True) -> None:
     """Audio demos: the reconstruction, the inpainting prompt (masked frames
     silent) and 12 MaskGIT steps filling the middle half, written as WAVs
-    under samples/step_<step>/ and to TensorBoard where it is installed."""
+    under samples/step_<step>/ and to TensorBoard where it is installed.
+    `lm` is a `VampNetLM` or a dp group's `ShardedLM`. Every rank computes
+    them; only `is_main` writes."""
     from ..audio import AudioSignal
     from ..sampling.generate import generate
 
@@ -364,6 +464,8 @@ def save_samples(lm: VampNetLM, codec: LAC, codebooks: torch.Tensor, audio: torc
 
     outs = {"reconstructed": decode(z), "inpainted_prompt": decode(z_masked),
             "inpainted_middle": decode(imputed)}
+    if not is_main:
+        return
     sample_dir = Path(save_path) / "samples" / f"step_{step}"
     for name, wavs in outs.items():
         wavs = wavs.float().cpu().numpy()
@@ -375,13 +477,15 @@ def save_samples(lm: VampNetLM, codec: LAC, codebooks: torch.Tensor, audio: torc
 
 
 def validate(eval_step, val_data, batch_size: int, rng: np.random.Generator, device,
-             n_batches: int = 4) -> dict:
+             n_batches: int = 4, shard=(0, 1)) -> dict:
     """The mean of `eval_step`'s metrics over the first `n_batches` batches,
-    each seeded from `rng`."""
+    each seeded from `rng`. In a job of several processes each rank loads
+    its rows of the same global batches (`shard`) and `eval_step` returns
+    the global batch's metrics, so every rank gets the same means."""
     out: dict = {}
     count = 0
     gen = torch.Generator(device=device)
-    it = iter(BatchLoader(val_data, batch_size, num_workers=2))
+    it = iter(BatchLoader(val_data, batch_size, num_workers=2, shard=shard))
     try:
         for batch in it:
             if count >= n_batches:
@@ -398,8 +502,18 @@ def validate(eval_step, val_data, batch_size: int, rng: np.random.Generator, dev
 
 def main(argv=None):
     """The command line: `--args.load conf.yml` and `--Key value` overrides;
-    `--device cpu` runs the plain PyTorch path (the card by default)."""
+    `--device cpu` runs the plain PyTorch path (the card by default). With
+    a coordinator in the environment (JAX's `JAX_COORDINATOR_ADDRESS` or
+    torchrun's `MASTER_ADDR`) the process first joins the job
+    (`multihost_init`), as the JAX loop's `main` does."""
+    import os
+
     args = cfglib.parse_args(argv)
+    if os.environ.get("JAX_COORDINATOR_ADDRESS") or os.environ.get("MASTER_ADDR"):
+        from .. import parallel
+
+        pid, n = parallel.multihost_init()
+        print(f"[multihost] process {pid}/{n}")
     return train(args, device=args.get("device", "cuda"))
 
 
