@@ -1,0 +1,9 @@
+"""The codec's share of the card's busy time in the traced window, in %:
+the device time of the kernels launched inside the benchmark's span around
+the frozen codec's encode in each step, over the union of all activity."""
+
+
+def read(run):
+    ns, n = run.trace.kernel_time(lambda name, span: span is not None
+                                  and span.startswith("codec."))
+    return 100.0 * ns / run.trace.busy_ns if n else None
