@@ -785,33 +785,113 @@ def test_build_demo_wiring_with_mock_gradio(interface, monkeypatch):
 # ---------------- profiling ----------------
 
 
+@pytest.fixture
+def tracing():
+    """The tracer on and empty for the test, off and empty after it."""
+    profiling.clear()
+    profiling.enable()
+    yield
+    profiling.disable()
+    profiling.clear()
+
+
 def test_profiling_timers_and_trace(tmp_path, capsys):
-    profiling.reset()
     t = profiling.Timer()
     t.tick("predict")
     assert t.tock("predict") >= 0 and "predict took" in capsys.readouterr().out
 
-    @profiling.timer()
-    def stage():
-        return 3
-
-    for _ in range(3):
-        assert stage() == 3
-    with profiling.timing("block"):
-        pass
-    s = profiling.summary()
-    assert s["stage"]["count"] == 3 and s["block"]["count"] == 1
-    assert s["stage"]["p50_s"] <= s["stage"]["p95_s"]
-    profiling.reset()
-    assert profiling.summary() == {}
-
-    with profiling.trace(str(tmp_path / "a")) as d:
-        torch.ones(8).sum()
+    profiling.clear()
+    with profiling.trace(str(tmp_path / "a")) as d:  # the spans are on inside a trace
+        for _ in range(3):
+            with profiling.span("stage"):
+                torch.ones(8).sum()
     assert (tmp_path / "a" / "trace.json").exists() and d == str(tmp_path / "a")
+    events = json.loads((tmp_path / "a" / "trace.json").read_text())["traceEvents"]
+    assert sum(e.get("name") == "vampnet/stage" for e in events) == 3
+    s = profiling.summary()
+    assert s["stage"]["count"] == 3 and s["stage"]["p50_s"] <= s["stage"]["p95_s"]
+    profiling.clear()
+    assert profiling.summary() == {}
     session = profiling.start_server(str(tmp_path / "b"))
     torch.ones(8).sum()
     path = session.stop()
     assert json.loads(open(path).read())["traceEvents"]
+    with profiling.span("after"):
+        pass
+    assert profiling.records() == []
+
+
+def test_profiling_span_is_one_shared_noop_while_off():
+    profiling.clear()
+    a, b = profiling.span("x"), profiling.span("y", rows=3)
+    assert a is b and a.id is None
+    with a as inside:
+        assert inside is a
+    assert profiling.stamp() is None
+    assert profiling.records() == [] and profiling.summary() == {}
+
+
+def test_profiling_spans_nest_per_thread_and_keep_their_ids(tracing):
+    def in_another_thread():
+        with profiling.span("other"):
+            pass
+
+    with profiling.span("outer", request=7) as outer:
+        with profiling.span("inner") as inner:
+            other = threading.Thread(target=in_another_thread)
+            other.start()
+            other.join(timeout=WAIT)
+    t0 = profiling.stamp()
+    profiling.record("queue", t0, request=7)
+    by_name = {r.name: r for r in profiling.records()}
+    assert [r.name for r in profiling.records()] == ["other", "inner", "outer", "queue"]
+    o, i, q = by_name["outer"], by_name["inner"], by_name["queue"]
+    assert (o.id, i.id) == (outer.id, inner.id) and len({o.id, i.id, q.id}) == 3
+    assert i.parent == o.id and o.parent is None and by_name["other"].parent is None
+    assert o.ids == {"request": 7} and i.ids == {} and q.ids == {"request": 7}
+    assert o.start_ns <= i.start_ns <= i.end_ns <= o.end_ns
+    assert q.start_ns == t0 <= q.end_ns and q.parent is None
+    assert o.tid == i.tid == threading.get_native_id() != by_name["other"].tid
+    profiling.clear()
+    assert profiling.records() == []
+
+
+def test_engine_records_a_queue_span_per_request_and_a_dispatch_span_per_group(
+        interface, engine_factory, tracing):
+    eng = engine_factory(interface, max_wait_ms=200.0, max_batch=4)
+    codes, mask = _codes_mask(interface)
+    # two static configs: one batch of two groups
+    futs = [eng.submit(VampRequest(codes=codes, mask=mask, seed=i, sampling_steps=2 + (i == 2),
+                                   trace_id=100 + i)) for i in range(3)]
+    for f in futs:
+        f.result(WAIT)
+    recs = profiling.records()
+    queued = {r.ids["request"]: r for r in recs if r.name == "engine.queue"}
+    groups = [r for r in recs if r.name == "engine.dispatch"]
+    assert sorted(queued) == [100, 101, 102]
+    assert eng.stats["batches"] == len(groups) == 2
+    assert sorted(sorted(g.ids["requests"]) for g in groups) == [[100, 101], [102]]
+    for g in groups:
+        assert g.ids["rows"] == len(g.ids["requests"]) and g.end_ns > g.start_ns
+        assert all(queued[rid].end_ns <= g.start_ns for rid in g.ids["requests"])
+
+
+def test_vamp_core_engine_spans_share_the_request_id(interface, engine_factory, tracing):
+    from vampnet_tpu_torch.serve.webapp import vamp_core_engine
+
+    eng = engine_factory(interface, max_wait_ms=50.0)
+    sig = _sig(0.3)
+    res = vamp_core_engine(interface, eng, (sig.sample_rate, sig.samples[0, 0]), seed=5,
+                           batch_size=2, sampling_steps=2)
+    assert len(res.variations) == 2
+    recs = profiling.records()
+    (request,) = [r for r in recs if r.name == "webapp.request"]
+    (wait,) = [r for r in recs if r.name == "webapp.engine_wait"]
+    queued = [r for r in recs if r.name == "engine.queue"]
+    assert wait.parent == request.id and wait.ids == {"request": request.id}
+    assert [r.ids["request"] for r in queued] == [request.id] * 2
+    assert request.start_ns <= wait.start_ns <= wait.end_ns <= request.end_ns
+    assert all(request.start_ns <= q.start_ns and q.end_ns <= wait.end_ns for q in queued)
 
 
 # ---------------- stdlib web app ----------------

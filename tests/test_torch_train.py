@@ -327,3 +327,28 @@ def test_train_step_draws_and_runs_with_dropout():
     init = convert.lm_state_dict_from_jax(lm_np, tcfg)
     for name, p in lm.state_dict().items():
         assert torch.isfinite(p).all() and not torch.equal(p, init[name]), name
+
+
+def test_train_step_records_forward_backward_optimizer_spans():
+    """While tracing, a step records `train.forward`, `train.backward` and
+    `train.optimizer` once each, in that order, none inside another."""
+    from vampnet_tpu_torch import profiling
+
+    _jcfg, tcfg = _lm_configs(0)
+    _, _, _, lm, codec, _, _, cbs = _setup(0, seed=3)
+    opt = make_optimizer(tcfg.embedding_dim, warmup=10)
+    state = TrainState.create(lm, opt)
+    step = make_train_step(lm, codec, opt)
+    audio = _t((np.random.default_rng(4).standard_normal((2, 32 * 16, 1)) * 0.1)
+               .astype(np.float32))
+    profiling.clear()
+    profiling.enable()
+    try:
+        step(state, _t(cbs), audio, torch.Generator().manual_seed(0))
+    finally:
+        profiling.disable()
+    recs = profiling.records()
+    profiling.clear()
+    assert [r.name for r in recs] == ["train.forward", "train.backward", "train.optimizer"]
+    assert all(r.parent is None and r.end_ns >= r.start_ns for r in recs)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(recs, recs[1:]))

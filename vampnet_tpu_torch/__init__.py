@@ -28,7 +28,8 @@ Layer map (mirrors `vampnet_tpu`):
   serve/     the continuous-batching engine, the stdlib web app, the app's
              `vamp_core` (and its Gradio UI), the unloop OSC bridge and the
              token telephone
-  profiling  wall-clock stage timers and `torch.profiler` traces
+  profiling  the tracer (spans at the engine, web request and training step
+             boundaries), the unloop timer and `torch.profiler` traces
 """
 __version__ = "0.1.0"
 

@@ -21,6 +21,11 @@ Concurrent requests are merged into shared device batches:
     batch's result to the host (`.cpu()` waits for its kernels) and resolves
     the futures. `pipeline_depth` bounds the batches in flight.
 
+While tracing is on (`profiling.py`) the engine records an `engine.queue`
+span per request, from `submit` to its group's start, with the request's
+`trace_id`, and an `engine.dispatch` span per group around the host's
+enqueue of its coarse and c2f loops, with the group's trace ids and rows.
+
 Each request's tokens depend only on its own seed: its row takes per-row
 keys (`Interface.coarse_vamp(seed=array)`), so it gets the same tokens
 served alone or batched, up to the card's choice of GEMM algorithm for the
@@ -44,6 +49,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..util import to_device
 
 
@@ -61,6 +67,7 @@ class VampRequest:
     typical_mass: float = 0.15
     typical_min_tokens: int = 64
     coarse_only: bool = False
+    trace_id: Optional[int] = None  # shared with the caller's spans (profiling.py)
 
 
 class VampEngine:
@@ -85,7 +92,8 @@ class VampEngine:
         if data_parallel:
             assert mesh is not None, "data_parallel serving requires interface.shard(mesh) first"
         self.dp = mesh.shape.get("dp", 1) if data_parallel else 1
-        self._q: "queue.Queue[Tuple[VampRequest, Future]]" = queue.Queue()
+        # (request, future, its submit time while tracing)
+        self._q: "queue.Queue[Tuple[VampRequest, Future, Optional[int]]]" = queue.Queue()
         # dispatched batches whose results are not on the host yet; the
         # bounded put() is the backpressure that caps device memory at
         # pipeline_depth batches
@@ -121,7 +129,7 @@ class VampEngine:
 
     def submit(self, req: VampRequest) -> Future:
         fut: Future = Future()
-        self._q.put((req, fut))
+        self._q.put((req, fut, profiling.stamp()))
         return fut
 
     def vamp(self, req: VampRequest, timeout: Optional[float] = None) -> np.ndarray:
@@ -150,7 +158,7 @@ class VampEngine:
                 _fail(item[1], RuntimeError("engine closed"))
         while True:
             try:
-                _req, fut = self._q.get_nowait()
+                _req, fut, _t = self._q.get_nowait()
             except queue.Empty:
                 break
             _fail([(_req, fut)], RuntimeError("engine closed"))
@@ -181,7 +189,7 @@ class VampEngine:
                     first = self._q.get(timeout=0.1)
                 except queue.Empty:
                     continue
-                batch: List[Tuple[VampRequest, Future]] = [first]
+                batch: List[Tuple[VampRequest, Future, Optional[int]]] = [first]
                 deadline = time.monotonic() + self.max_wait_ms / 1000.0
                 while len(batch) < self.max_batch:
                     remaining = deadline - time.monotonic()
@@ -192,7 +200,9 @@ class VampEngine:
                     except queue.Empty:
                         break
                 groups: Dict[Any, List[Tuple[VampRequest, Future]]] = {}
-                for req, fut in batch:
+                for req, fut, t_submit in batch:
+                    if t_submit is not None:
+                        profiling.record("engine.queue", t_submit, request=req.trace_id)
                     key = self._static_key(req, self._bucket_len(req.codes.shape[-1]))
                     groups.setdefault(key, []).append((req, fut))
                 # stats before any future resolves: callers read them as
@@ -203,7 +213,10 @@ class VampEngine:
                     len(v) for v in groups.values() if len(v) > 1)
                 for key, items in groups.items():
                     try:
-                        out, lens = self._dispatch_group(key, items)
+                        with profiling.span("engine.dispatch",
+                                            requests=[r.trace_id for r, _ in items],
+                                            rows=len(items)):
+                            out, lens = self._dispatch_group(key, items)
                     except Exception as e:  # the group's futures carry it
                         _fail(items, RuntimeError(f"{e}\n{traceback.format_exc()}"))
                         continue

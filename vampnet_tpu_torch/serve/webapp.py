@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import mask as pmask
+from .. import profiling
 from ..audio.dsp import pitch_shift
 from .app import PRESETS, VampResult, input_signal, to_output, vamp_core
 from .engine import VampRequest
@@ -94,53 +95,61 @@ def vamp_core_engine(interface, engine, input_audio, **kwargs) -> VampResult:
     """`vamp_core` with its generate stage routed through a `VampEngine`:
     encode, mask and decode run in the caller's thread, and each variation
     is one engine request, so concurrent clients (and a request's own
-    variations) share batches on the card. Variation i takes seed + i."""
-    t0 = time.time()
-    seed = int(kwargs.pop("seed", 0))
-    _seed = seed if seed > 0 else int(np.random.randint(0, 2**31 - 1))
-    batch_size = int(kwargs.pop("batch_size", 2))
-    sig = input_signal(input_audio)
-    loudness = sig.loudness()
-    psa = int(kwargs.pop("pitch_shift_amt", 0))
-    if psa:
-        sig = pitch_shift(sig, psa)
+    variations) share batches on the card. Variation i takes seed + i.
 
-    n_mask_codebooks = int(kwargs.pop("n_mask_codebooks", 3))
-    codes = interface.encode(sig)
-    mask = interface.build_mask(
-        codes, sig=sig, periodic_prompt=int(kwargs.pop("periodic_p", 7)),
-        onset_mask_width=int(kwargs.pop("onset_mask_width", 0)),
-        _dropout=float(kwargs.pop("dropout", 0.0)), upper_codebook_mask=n_mask_codebooks,
-        seed=_seed,
-    )
-    beat_mask_ms = int(kwargs.pop("beat_mask_ms", 0))
-    if beat_mask_ms > 0 and interface.beat_tracker is not None:
-        mask = pmask.mask_and(
-            mask, interface.make_beat_mask(sig, after_beat_s=beat_mask_ms / 1000.0))
-        mask = pmask.codebook_mask(mask, n_mask_codebooks)
+    While tracing (`profiling.py`), a `webapp.request` span covers the call
+    and a `webapp.engine_wait` span its wait on the engine; its engine
+    requests carry the request span's id as their `trace_id`."""
+    with profiling.span("webapp.request") as request_span:
+        request_id = request_span.id
+        t0 = time.time()
+        seed = int(kwargs.pop("seed", 0))
+        _seed = seed if seed > 0 else int(np.random.randint(0, 2**31 - 1))
+        batch_size = int(kwargs.pop("batch_size", 2))
+        sig = input_signal(input_audio)
+        loudness = sig.loudness()
+        psa = int(kwargs.pop("pitch_shift_amt", 0))
+        if psa:
+            sig = pitch_shift(sig, psa)
 
-    top_p = kwargs.pop("top_p", None)
-    if top_p is not None and top_p <= 0:
-        top_p = None
-    codes_np, mask_np = codes.cpu().numpy(), mask.cpu().numpy()
-    futures = [
-        engine.submit(VampRequest(
-            codes=codes_np, mask=mask_np, seed=_seed + i,
-            temperature=float(kwargs.get("sampletemp", 1.0)), top_p=top_p,
-            sample_cutoff=float(kwargs.get("sample_cutoff", 1.0)),
-            sampling_steps=int(kwargs.get("sampling_steps", 36)),
-            typical_filtering=bool(kwargs.get("typical_filtering", True)),
-            typical_mass=float(kwargs.get("typical_mass", 0.15)),
-            typical_min_tokens=int(kwargs.get("typical_min_tokens", 64)),
-        ))
-        for i in range(batch_size)
-    ]
-    zv = np.concatenate([f.result() for f in futures], axis=0)
-    out = interface.decode(zv).normalize(float(loudness[0]))
-    return VampResult(
-        variations=[to_output(out, i) for i in range(out.batch_size)],
-        mask=mask_np, seed=_seed, wall_time_s=time.time() - t0,
-    )
+        n_mask_codebooks = int(kwargs.pop("n_mask_codebooks", 3))
+        codes = interface.encode(sig)
+        mask = interface.build_mask(
+            codes, sig=sig, periodic_prompt=int(kwargs.pop("periodic_p", 7)),
+            onset_mask_width=int(kwargs.pop("onset_mask_width", 0)),
+            _dropout=float(kwargs.pop("dropout", 0.0)), upper_codebook_mask=n_mask_codebooks,
+            seed=_seed,
+        )
+        beat_mask_ms = int(kwargs.pop("beat_mask_ms", 0))
+        if beat_mask_ms > 0 and interface.beat_tracker is not None:
+            mask = pmask.mask_and(
+                mask, interface.make_beat_mask(sig, after_beat_s=beat_mask_ms / 1000.0))
+            mask = pmask.codebook_mask(mask, n_mask_codebooks)
+
+        top_p = kwargs.pop("top_p", None)
+        if top_p is not None and top_p <= 0:
+            top_p = None
+        codes_np, mask_np = codes.cpu().numpy(), mask.cpu().numpy()
+        futures = [
+            engine.submit(VampRequest(
+                codes=codes_np, mask=mask_np, seed=_seed + i,
+                temperature=float(kwargs.get("sampletemp", 1.0)), top_p=top_p,
+                sample_cutoff=float(kwargs.get("sample_cutoff", 1.0)),
+                sampling_steps=int(kwargs.get("sampling_steps", 36)),
+                typical_filtering=bool(kwargs.get("typical_filtering", True)),
+                typical_mass=float(kwargs.get("typical_mass", 0.15)),
+                typical_min_tokens=int(kwargs.get("typical_min_tokens", 64)),
+                trace_id=request_id,
+            ))
+            for i in range(batch_size)
+        ]
+        with profiling.span("webapp.engine_wait", request=request_id):
+            zv = np.concatenate([f.result() for f in futures], axis=0)
+        out = interface.decode(zv).normalize(float(loudness[0]))
+        return VampResult(
+            variations=[to_output(out, i) for i in range(out.batch_size)],
+            mask=mask_np, seed=_seed, wall_time_s=time.time() - t0,
+        )
 
 
 _INDEX_HTML = """<!doctype html>

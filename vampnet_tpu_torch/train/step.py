@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from .. import mask as pmask
+from .. import profiling
 from ..modules.lora import LORA_LEAVES
 from ..util import codebook_flatten
 from .scheduler import noam_schedule
@@ -336,10 +337,14 @@ def loss_and_grads(model, z_masked: torch.Tensor, codebooks: torch.Tensor,
     trainable parameter. Returns (loss, metrics, grads)."""
     params = [p for p in model.parameters() if p.requires_grad]
     with torch.enable_grad():
-        logits = model.forward_codes(z_masked, codebooks, generator=generator, ctrls=ctrls,
-                                     ctrl_masks=ctrl_masks)
-        loss, metrics = loss_and_metrics(logits, target, flat_mask, r, label_smoothing)
-        grads = list(torch.autograd.grad(loss, params))
+        with profiling.span("train.forward"):
+            logits = model.forward_codes(z_masked, codebooks, generator=generator, ctrls=ctrls,
+                                         ctrl_masks=ctrl_masks)
+            loss, metrics = loss_and_metrics(logits, target, flat_mask, r, label_smoothing)
+        # on the card autograd runs the backward's operators on its own
+        # device thread: their kernels belong to this span by its interval
+        with profiling.span("train.backward"):
+            grads = list(torch.autograd.grad(loss, params))
     return loss.detach(), metrics, grads
 
 
@@ -372,7 +377,8 @@ def make_train_step(lm_model, codec_model, optimizer: Optimizer,
         _loss, metrics, grads = loss_and_grads(
             state.model, z_masked, codebooks, target, flat_mask, r, generator,
             label_smoothing, ctrls, ctrl_masks)
-        metrics["grad_norm"] = optimizer.update(grads, state.opt_state, state.params)
+        with profiling.span("train.optimizer"):
+            metrics["grad_norm"] = optimizer.update(grads, state.opt_state, state.params)
         state.step += 1
         return state, metrics
 
