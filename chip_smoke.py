@@ -15,15 +15,19 @@ Phases, each of which must pass (no failure is caught):
      it, and time kernel, plain version and, where one exists, a single
      PyTorch library call (the attention kernels also in TFLOP/s); the
      backward kernel, called twice on the same inputs, must repeat dk, dv
-     and dbias bit for bit;
+     and dbias bit for bit, and so must the bucket table's gradient
+     (`relative_bias_grad`, at the coarse and c2f training biases, a bf16
+     gradient and a rectangular bias; its yardstick is autograd's index
+     backward);
   4. serve full-width `Interface.vamp_e2e` requests (coarse 20 layers, c2f
      16 layers, d=1280, the 44.1 kHz codec; random weights from a seed) and
-     check their outputs and the serving kernels' launch counts;
+     check their outputs and the serving kernels' launch counts (none of
+     the bucket table's gradient);
   5. train the full-width coarse LM (dropout 0.1, bf16 compute, fp32 params
      and Adam moments) for a few steps on 8 x 10 s of audio through the
      frozen codec, and check the loss, the grad norm, the parameters, the
-     attention gradients and the training kernels' launch counts; profile
-     one more step;
+     attention gradients and the training kernels' launch counts (one
+     bucket table gradient a step); profile one more step;
   6. check the card's results against the CPU on small inputs: the coarse
      LM's logits (CPU in fp32), the codec's codes and waveform, and a small
      training step's loss and gradients (CPU in fp32);
@@ -481,6 +485,69 @@ def check_attention_train(b, t, h, d, gen, timed=True, bias_dtype=None, mask=Non
     return dict(zip(names, (fwd, bwd)))
 
 
+def check_relative_bias(h, t_q, t_k, gen, timed=True, dtype=None):
+    """The bucket table's gradient kernel at (h, t_q, t_k) against its plain
+    version on the same fp32 (or `dtype`) gradient, and a second call on the
+    same inputs: the kernel sums in a fixed order, so the repeat is bit for
+    bit. Timed: the kernel, its bound (one read of dbias), the plain version,
+    and autograd's index backward through `table[buckets]` (the route the
+    training step took before the kernel) as the library yardstick."""
+    import torch
+
+    from vampnet_tpu_torch.modules.transformer import relative_position_bucket
+    from vampnet_tpu_torch.ops.relative_bias import (
+        bucket_index,
+        relative_bias_grad,
+        relative_bias_grad_plain,
+    )
+
+    nb = 32
+    offsets = relative_position_bucket(torch.arange(-(t_q - 1), t_k, device="cuda"), True, nb, 128)
+    dbias = torch.randn((h, t_q, t_k), generator=gen, device="cuda").to(dtype or torch.float32)
+    got = relative_bias_grad(dbias, offsets, nb)
+    again = relative_bias_grad(dbias, offsets, nb)
+    ref = relative_bias_grad_plain(dbias, offsets, nb)
+    # each bucket's sum of |dbias|: the scale of an fp32 reordering's error
+    mag = relative_bias_grad_plain(dbias.abs(), offsets, nb)
+    torch.cuda.synchronize()
+    if got.shape != (nb, h) or got.dtype != torch.float32 or not torch.isfinite(got).all():
+        raise AssertionError(f"relative-bias gradient: {got.dtype} {tuple(got.shape)}")
+    scaled = float(((got - ref).abs() / mag.clamp_min(1e-30)).max())
+    # the same fp32 terms summed in another order: a few eps = 1.2e-7 of the
+    # bucket's sum of magnitudes (1e-7 on the CPU at these shapes); a term
+    # in the wrong bucket moves it by about a row's share, 1e-3 or more
+    if not scaled <= 1e-6:
+        raise AssertionError(f"relative-bias gradient disagrees: |err| / sum |dbias| {scaled}")
+    if not torch.equal(got, again):
+        raise AssertionError("relative-bias gradient: a second call on the same inputs differs")
+    res = dict(max_abs_err=float((got - ref).abs().max()), err_over_magnitude=scaled,
+               bitwise_repeat=True)
+    if not timed:
+        return res
+    io_bytes = dbias.numel() * dbias.element_size() + 4 * offsets.numel() + 4 * nb * h
+    bound_ms = 1e3 * io_bytes / H100_BYTES_PER_S
+    ms = time_ms(lambda: relative_bias_grad(dbias, offsets, nb))
+    table = torch.randn((nb, h), generator=gen, device="cuda").requires_grad_()
+    lib_bias = table[bucket_index(offsets, t_q, t_k)].permute(2, 0, 1).contiguous()
+
+    def lib_grad():
+        return torch.autograd.grad(lib_bias, table, dbias, retain_graph=True)[0]
+
+    lib_err = float(((lib_grad() - ref).abs() / mag.clamp_min(1e-30)).max())
+    if not lib_err <= 1e-6:
+        raise AssertionError(f"the library backward computes another gradient: {lib_err}")
+    res.update(ms=ms, bound_ms=bound_ms, bound_by="bytes", gbytes_per_s=io_bytes / ms * 1e-6,
+               call_ms=call_ms(lambda: relative_bias_grad(dbias, offsets, nb)),
+               plain_ms=time_ms(lambda: relative_bias_grad_plain(dbias, offsets, nb), reps=5),
+               library_ms=time_ms(lib_grad, reps=5), library_err_over_magnitude=lib_err,
+               library_note="autograd through table[buckets].permute(2, 0, 1).contiguous(): "
+                            "the copy's backward and the index backward")
+    print(f"kernel relative_bias_grad h={h} t_q={t_q} t_k={t_k}: {ms:.4f} ms "
+          f"({res['gbytes_per_s']:.0f} GB/s), bound {bound_ms:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} ms")
+    return res
+
+
 def sampler_agreement(label, keys, logits, temp, top_p=None, **kw):
     """The sampler kernel against its plain version on one input, greedy and
     noisy: the mismatching tokens, the positions that differ, and the worst
@@ -931,6 +998,7 @@ def train_full_width(codec, codebooks, gen):
         attention_fwd_lse,
         flash_attention_with_bias,
     )
+    from vampnet_tpu_torch.ops.relative_bias import relative_bias_grad
     from vampnet_tpu_torch.train import TrainState, make_optimizer, make_train_step
 
     cfg = LMConfig.coarse(dropout=0.1)
@@ -947,7 +1015,11 @@ def train_full_width(codec, codebooks, gen):
           f"dropout {cfg.dropout}, compute {cfg.compute_dtype}")
     dgen = torch.Generator(device="cuda")
     dgen.manual_seed(SEED)
-    counters = {"attention_fwd_lse": attention_fwd_lse, "attention_bwd_fused": attention_bwd_fused}
+    counters = {"attention_fwd_lse": attention_fwd_lse, "attention_bwd_fused": attention_bwd_fused,
+                "relative_bias_grad": relative_bias_grad}
+    # one bias (layer 0's table) for the 20 layers: its gradient once a step
+    want = {"attention_fwd_lse": cfg.n_layers, "attention_bwd_fused": cfg.n_layers,
+            "relative_bias_grad": 1}
     for c in (*counters.values(), flash_attention_with_bias):
         c.launches = 0
     walls, peaks = [], []
@@ -966,8 +1038,8 @@ def train_full_width(codec, codebooks, gen):
               f"loss {loss:.5f}, grad_norm {grad_norm:.5f}, launches {made}")
         if not (math.isfinite(loss) and math.isfinite(grad_norm)):
             raise AssertionError(f"train step {i}: loss {loss}, grad_norm {grad_norm}")
-        if any(m != cfg.n_layers for m in made.values()):
-            raise AssertionError(f"train step {i}: launches {made}, want {cfg.n_layers} each")
+        if made != want:
+            raise AssertionError(f"train step {i}: launches {made}, want {want}")
     launches = {n: c.launches for n, c in counters.items()}
     if flash_attention_with_bias.launches:
         raise AssertionError("training launched the forward-only inference kernel")
@@ -991,7 +1063,12 @@ def train_full_width(codec, codebooks, gen):
                   peak_gib=max(peaks), params_moved=moved, params=len(init),
                   launches_per_step={n: launches[n] // TRAIN_STEPS for n in launches})
     print("train: " + json.dumps(result))
-    profile("train step", lambda: step(state, cbs, audio, dgen))
+    # what is left of autograd's sort-based index backward (the embedding's
+    # gather) beside the bucket table's gradient kernel
+    hits = {}
+    profile("train step", lambda: step(state, cbs, audio, dgen),
+            totals=("indexing_backward", "relative_bias"), hits=hits)
+    result["profiled_ms_launches"] = hits
     return result, launches
 
 
@@ -4045,6 +4122,7 @@ def main() -> int:
     from vampnet_tpu_torch.ops.ffn_kernel import fused_geglu_ffn
     from vampnet_tpu_torch.ops.flash_attention import flash_attention_with_bias
     from vampnet_tpu_torch.ops.int8_matmul import w8a8_matmul
+    from vampnet_tpu_torch.ops.relative_bias import relative_bias_grad
     from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits
 
     t_start = time.perf_counter()
@@ -4164,6 +4242,18 @@ def main() -> int:
         print(f"kernel {name}[train b={TRAIN_BATCH} key padding]: " + json.dumps(masked_k[name]))
     for name in train_k2048:
         print(f"kernel {name}[train b=1 t=2048]: " + json.dumps(train_k2048[name]))
+    # the bucket table's gradient at the coarse and c2f training shapes
+    # (fp32, timed), with a bf16 gradient, and at a rectangular bias whose
+    # rows start off 16-byte boundaries and whose last vector is ragged
+    rel_bias = {
+        "coarse": check_relative_bias(coarse_cfg.n_heads, t_coarse, t_coarse, gen),
+        "c2f": check_relative_bias(c2f_cfg.n_heads, t_c2f, t_c2f, gen),
+        "bf16": check_relative_bias(coarse_cfg.n_heads, t_coarse, t_coarse, gen, timed=False,
+                                    dtype=torch.bfloat16),
+        "rect": check_relative_bias(3, 37, 1031, gen, timed=False),
+    }
+    for shape, r in rel_bias.items():
+        print(f"kernel relative_bias_grad[{shape}]: " + json.dumps(r))
     # the training kernels at the other head dims and with the serving LMs'
     # bf16 bias
     for label, kw in (("d32", dict(h=d_model // 32, d=32)),
@@ -4193,8 +4283,13 @@ def main() -> int:
                 "w8a8_matmul": w8a8_matmul, "fused_geglu_ffn": fused_geglu_ffn}
     want = {"attention_fwd": n_layer_calls, "sampler": 12 + 2, "w8a8_matmul": 0,
             "fused_geglu_ffn": 0}
+    bias_grads = relative_bias_grad.launches
     served, base_launches = serve("bf16", lambda i: iface.vamp_e2e(sig, seed=SEED + i, **kw),
                                   REQUESTS, counters, want, n_samples)
+    # the serving bias is built under no_grad: no table gradient
+    if relative_bias_grad.launches != bias_grads:
+        raise AssertionError(f"{REQUESTS} requests launched the relative-bias gradient "
+                             f"{relative_bias_grad.launches - bias_grads} times")
     launches = {"attention_fwd": base_launches["attention_fwd"],
                 "sampler": base_launches["sampler"]}
 
@@ -4430,6 +4525,11 @@ def main() -> int:
             library_note=res.get("library_note"), call_ms=res["call_ms"],
             launches_path="masked TransformerStack, forward and backward",
         ))
+    kernels.append(dict(
+        entry("relative_bias_grad", "vampnet_tpu_torch/csrc/relative_bias.cu",
+              "none: XLA's scatter-add of the bias gather's gradient, "
+              "vampnet_tpu/modules/transformer.py:119-136", rel_bias),
+        launches_per_train_step=1, launches_per_request=0))
     kernels.append(dict(
         entry("w8a8_matmul", "vampnet_tpu_torch/csrc/int8_matmul.cu",
               "vampnet_tpu/ops/int8_matmul.py:36", results["w8a8_matmul"], main="coarse_w_1"),

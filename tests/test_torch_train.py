@@ -329,6 +329,59 @@ def test_train_step_draws_and_runs_with_dropout():
         assert torch.isfinite(p).all() and not torch.equal(p, init[name]), name
 
 
+class _IndexBias:
+    """`RelativePositionBias`'s forward left to autograd: the gather's
+    gradient is then the index backward through `table[buckets]`."""
+
+    @staticmethod
+    def apply(table, offset_buckets, t_q, t_k):
+        from vampnet_tpu_torch.ops.relative_bias import bucket_index
+
+        return table[bucket_index(offset_buckets, t_q, t_k)].permute(2, 0, 1).contiguous()
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+def test_train_step_table_gradient_matches_autograd_index_path(remat, monkeypatch):
+    """One coarse step whose bias is `RelativePositionBias` (its backward
+    called once) against the same step with the bias left to autograd's
+    index backward through `table[buckets]`: the same loss, bit for bit (the
+    forward gathers the same values), and the bucket table's gradient, read
+    from Adam's first moment (1 - b1) g, within fp32 reorder."""
+    from vampnet_tpu_torch.modules import transformer as ttr
+    from vampnet_tpu_torch.ops import relative_bias as rb
+
+    _jcfg, tcfg = _lm_configs(0)
+    tcfg = dataclasses.replace(tcfg, remat=remat)
+    _, _, _, _, codec, lm_np, _, cbs = _setup(0, seed=10)
+    rng = np.random.default_rng(11)
+    z = _t(rng.integers(0, tcfg.vocab_size, (2, tcfg.n_codebooks, 40)))
+    mask = _t(rng.integers(0, 2, z.shape))
+    r = torch.tensor([0.3, 0.6])
+    calls = []
+    grad = rb.relative_bias_grad
+    monkeypatch.setattr(rb, "relative_bias_grad",
+                        lambda *a, **kw: calls.append(1) or grad(*a, **kw))
+
+    def step():
+        lm = VampNetLM(tcfg, device="cpu")
+        lm.load_state_dict(convert.lm_state_dict_from_jax(lm_np, tcfg))
+        opt = make_optimizer(tcfg.embedding_dim, warmup=10)
+        state = TrainState.create(lm, opt)
+        state, metrics = make_train_step(lm, codec, opt).with_mask(state, _t(cbs), z, r, mask)
+        table = lm.transformer.layers_0.self_attn.relative_attention_bias
+        return float(metrics["loss"]), state.opt_state.adamw.state[table]["exp_avg"] / 0.1
+
+    loss, g = step()
+    assert len(calls) == 1
+    with monkeypatch.context() as m:
+        m.setattr(ttr, "RelativePositionBias", _IndexBias)
+        loss_index, g_index = step()
+    assert len(calls) == 1
+    assert loss == loss_index
+    # both sum each bucket's fp32 terms, only in another order (read 1.9e-7)
+    assert float((g - g_index).norm() / g_index.norm()) <= 1e-5
+
+
 def test_train_step_records_forward_backward_optimizer_spans():
     """While tracing, a step records `train.forward`, `train.backward` and
     `train.optimizer` once each, in that order, none inside another."""

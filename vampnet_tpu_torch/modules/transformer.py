@@ -64,6 +64,7 @@ from torch import nn
 from ..ops.attention import IMPLS, dot_product_attention
 from ..ops.flash_attention import attention_mask
 from ..ops.ffn_kernel import fused_geglu_ffn
+from ..ops.relative_bias import RelativePositionBias
 from .activations import new_gelu
 from .layers import CodebookEmbedding, Dense
 from .lora import LoRADense
@@ -150,16 +151,15 @@ def position_bias_from_params(model: "VampNetLM", t_q: int,
 
 def position_bias_from_table(table: torch.Tensor, cfg: LMConfig, t_q: int,
                              t_k: Optional[int] = None) -> torch.Tensor:
-    """`position_bias_from_params` from the bucket table itself."""
+    """`position_bias_from_params` from the bucket table itself, as
+    `RelativePositionBias` over the buckets of the t_q + t_k - 1 offsets j - i:
+    its backward sums the bias's gradient into the table with one kernel.
+    Under no_grad, or for a frozen table, it records no graph."""
     t_k = t_q if t_k is None else t_k
-    dev = table.device
-    rel = (torch.arange(t_k, device=dev)[None, :]
-           - torch.arange(t_q, device=dev)[:, None])
-    buckets = relative_position_bucket(
-        rel, bidirectional=True, num_buckets=cfg.attention_num_buckets,
-        max_distance=cfg.attention_max_distance,
-    )
-    return table[buckets].permute(2, 0, 1).contiguous()
+    offsets = relative_position_bucket(
+        torch.arange(-(t_q - 1), t_k, device=table.device), bidirectional=True,
+        num_buckets=cfg.attention_num_buckets, max_distance=cfg.attention_max_distance)
+    return RelativePositionBias.apply(table, offsets, t_q, t_k)
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:

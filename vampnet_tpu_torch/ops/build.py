@@ -63,6 +63,11 @@ _SIGNATURES = {
     # device, stream
     "vampnet_sampler": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _F, _I, _I, _I, _I, _P),
+    # h, t_q, num_buckets -> fp32 floats of scratch the gradient needs
+    "vampnet_relative_bias_partials": (_I, _I, _I),
+    # dbias, dbias_is_bf16, offset buckets (int32), partial (scratch), out,
+    # out_is_bf16, h, t_q, t_k, num_buckets, device, stream
+    "vampnet_relative_bias_grad": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
