@@ -1,12 +1,12 @@
 """Drive the PyTorch/CUDA port (`vampnet_tpu_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only magnet]
 
 Phases, each of which must pass (no failure is caught):
   1. print the card (`nvidia-smi`);
   2. build the CUDA kernels from `vampnet_tpu_torch/csrc` (nvcc, one process
      per source, started together) and print the build seconds and each
-     kernel's registers and spills (the attention forward's 16 instances
+     kernel's registers and spills (the attention forward's 22 instances
      apart, the backward's 8 counted);
   3. hold every kernel against its plain PyTorch version on the card, at the
      shapes the serving path (coarse and c2f), the long-context chunks
@@ -159,6 +159,13 @@ Phases, each of which must pass (no failure is caught):
      ranks sharing cuda:0 (full widths, 2 of 20 layers, b=4, 2 steps,
      validation, samples and a save: rank 0's files alone) against a
      one-rank NCCL job whose two positions are the two dp groups.
+After phase 3 come MAGNeT's routes (`magnet_kernels_phase`: the no-bias
+forward full, banded at w = 5 and cross at t_k = 64 at (16, 1,500, 24, 64),
+the sampler at V = 2,048) and one full-width MAGNeT engine group
+(`magnet_engine_phase`: launch counts of the group, and T5's masked
+forward, the three no-bias forwards and the sampler held to their plain
+versions on the inputs the path gave them). `python3 chip_smoke.py --only
+magnet` runs the build and these two alone.
 Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernels
 against their plain versions at the serving shapes, the w8a8 kernel also at
 ragged shapes (m 1, 37, 300; k 16, 80, 2,560; n 8, 40, 5,128; bf16 and fp32
@@ -624,6 +631,264 @@ def check_sampler(b, flat, gen, cases=False):
         bound_ms=1e3 * max(io_bytes / H100_BYTES_PER_S, ops / H100_FP32_FLOPS),
         bound_by="bytes" if io_bytes / H100_BYTES_PER_S >= ops / H100_FP32_FLOPS else "operations",
     )
+    return result
+
+
+def check_attention_magnet(b, t, h, d, gen, window=None, t_k=None, timed=True):
+    """The no-bias inference route (MAGNeT's layers: K9 at t = 1,500) at
+    (b, t, h, d) with a window w, or with k and v of t_k keys, against its
+    plain version; timed against one SDPA call (the band as a boolean mask)
+    and, without a window, against the same call given an explicit fp32
+    zero bias, which the kernel then reads."""
+    import torch
+    import torch.nn.functional as F
+
+    from vampnet_tpu_torch.ops.flash_attention import attention_fwd_plain, band
+    from vampnet_tpu_torch.ops.flash_attention import flash_attention_with_bias as fab
+
+    dev = "cuda"
+    t_k = t if t_k is None else t_k
+    q = torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, t_k, h, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out = fab(q, k, v, window=window)
+    ref = attention_fwd_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError("no-bias attention kernel produced non-finite values")
+    err = (out.float() - ref.float()).abs()
+    tol = 2e-2 + 2e-2 * ref.float().abs()  # as `check_attention`: a few bf16 ulps
+    if bool((err > tol).any()):
+        raise AssertionError(f"no-bias attention kernel disagrees: max abs err {float(err.max())}")
+    res = dict(max_abs_err=float(err.max()),
+               shape=f"b={b} t={t} h={h} d={d} t_k={t_k} window={window}")
+    if not timed:
+        return res
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_mask = None if window is None else band(t, t, window, dev)
+    keys = t_k if window is None else sum(min(t - 1, i + window) - max(0, i - window) + 1
+                                          for i in range(t)) / t
+    flops = 4 * h * b * t * keys * d
+    io_bytes = 2 * 2 * b * h * d * (t + t_k)
+    tb, tf = io_bytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    res.update(
+        ms=time_ms(lambda: fab(q, k, v, window=window)),
+        call_ms=call_ms(lambda: fab(q, k, v, window=window)),
+        plain_ms=time_ms(lambda: attention_fwd_plain(q, k, v, window=window), reps=5),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                  attn_mask=lib_mask)),
+        bound_ms=1e3 * max(tb, tf), bound_by="bytes" if tb >= tf else "operations")
+    if window is None and t_k == t:
+        zero = torch.zeros((h, t, t), dtype=torch.float32, device=dev)
+        res["zero_bias_ms"] = time_ms(lambda: fab(q, k, v, zero))
+    return res
+
+
+def check_sampler_v2048(b, flat, gen):
+    """The sampler kernel at V = 2,048 on MAGNeT's settings (no typical
+    filter, top-p 0.9, temperature 1 on pre-scaled logits) against its plain
+    version, and with the typical filter and top-k besides (untimed); timed
+    on MAGNeT's settings."""
+    import torch
+
+    from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits, fused_sample_plain
+
+    dev = "cuda"
+    logits = torch.randn((b, flat, 2048), generator=gen, device=dev) * 3.0
+    keys = torch.randint(0, 2 ** 32, (b, 2), generator=gen, device=dev, dtype=torch.int64)
+    temp = torch.full((b,), 1.0, device=dev)
+    kw = dict(typical_filtering=False, use_top_p=True, top_p=torch.full((b,), 0.9, device=dev))
+    result = sampler_agreement("magnet", keys, logits, temp, **kw)
+    peaked = torch.randn((b, flat, 2048), generator=gen, device=dev) * 100.0
+    for label, args, extra in (
+        ("peaked_scale_100", (peaked, temp), kw),
+        ("typical_filter", (logits, temp),
+         dict(typical_filtering=True, typical_mass=0.15, typical_min_tokens=64)),
+        ("top_k_64", (logits, temp), dict(kw, top_k=64)),
+    ):
+        result[label] = sampler_agreement(label, keys, *args, **extra)
+    io_bytes = logits.numel() * 4 + keys.numel() * 8 + b * flat * (8 + 4) + 3 * b * 4
+    ops = logits.numel() * (4 + 24 * 2 + 4 + 2 + 15)  # benchmark/roofline_magnet.py's count
+    result.update(
+        max_abs_err=max(result["greedy_max_abs_err"], result["noisy_max_abs_err"]),
+        ms=time_ms(lambda: fused_sample_from_logits(keys, 5, logits, temp, 1.0, **kw)),
+        call_ms=call_ms(lambda: fused_sample_from_logits(keys, 5, logits, temp, 1.0, **kw)),
+        plain_ms=time_ms(lambda: fused_sample_plain(keys, 5, logits, temp, 1.0, kw["top_p"],
+                                                    False, use_top_p=True), reps=5),
+        library_ms=None,
+        bound_ms=1e3 * max(io_bytes / H100_BYTES_PER_S, ops / H100_FP32_FLOPS),
+        bound_by="bytes" if io_bytes / H100_BYTES_PER_S >= ops / H100_FP32_FLOPS else "operations",
+    )
+    return result
+
+
+def magnet_kernels_phase(gen):
+    """MAGNeT's kernel routes at its shapes: the no-bias attention forward at
+    (16, 1,500, 24, 64), full (stage 0), banded at w = 5 (stages 1-3) and
+    cross at t_k = 64 (the text), and K10 at V = 2,048 at (16, 6,000). The
+    banded call takes at most a fifth of the full one, the no-bias call less
+    than the same call with an explicit zero bias."""
+    results = {
+        "full": check_attention_magnet(16, 1500, 24, 64, gen),
+        "banded_w5": check_attention_magnet(16, 1500, 24, 64, gen, window=5),
+        "cross_tk64": check_attention_magnet(16, 1500, 24, 64, gen, t_k=64),
+        "edges": {f"t{t}_w{w}": check_attention_magnet(2, t, 3, d, gen, window=w, timed=False)
+                  for t, w, d in ((1, 0, 64), (37, 0, 64), (300, 70, 128), (1034, 5, 64),
+                                  (129, 200, 64))},
+        "cross_edges": {f"t{t}_tk{tk}": check_attention_magnet(2, t, 3, 64, gen, t_k=tk,
+                                                               timed=False)
+                        for t, tk in ((700, 1), (1500, 63), (64, 1500))},
+        "sampler_v2048": check_sampler_v2048(16, 6000, gen),
+    }
+    for name, r in results.items():
+        print(f"kernel magnet[{name}]: " + json.dumps(r))
+    full, banded = results["full"], results["banded_w5"]
+    if banded["ms"] > full["ms"] / 5:
+        raise AssertionError(f"banded attention {banded['ms']:.3f} ms is over a fifth of the "
+                             f"full call's {full['ms']:.3f} ms")
+    if full["ms"] >= full["zero_bias_ms"]:
+        raise AssertionError(f"no-bias attention {full['ms']:.3f} ms is not faster than the "
+                             f"explicit zero bias's {full['zero_bias_ms']:.3f} ms")
+    return results
+
+
+def magnet_engine_phase(gen, steps=(3, 2, 2, 2), group=8):
+    """One MAGNeT engine group at full width on the card: `MagnetInterface`
+    (T5-base, the 48 x 1,536 LM, the EnCodec 32 kHz decoder) with random
+    weights, `group` 30 s requests of 8-64 T5 ids with per-row top-p and
+    temperatures, `steps` decoding steps a stage. The launch counters are
+    zeroed just before the group and read after it; the first launch of
+    each route on the path (T5's masked forward, the full, banded and cross
+    no-bias forwards, the sampler) is recorded and held to its plain
+    version on those very inputs."""
+    import numpy as np
+    import torch
+
+    from vampnet_tpu_torch.codec.encodec import EncodecConfig, EncodecDecoder
+    from vampnet_tpu_torch.magnet import MagnetInterface
+    from vampnet_tpu_torch.modules.magnet import MagnetConfig, MagnetLM, T5Config, T5Encoder
+    from vampnet_tpu_torch.ops import flash_attention as fa
+    from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_plain
+    from vampnet_tpu_torch.sampling import generate as gen_mod
+    from vampnet_tpu_torch.serve.engine import MagnetRequest, VampEngine
+
+    t5_cfg, lm_cfg, codec_cfg = T5Config(), MagnetConfig(), EncodecConfig()
+
+    t5_sd = random_state(T5Encoder(t5_cfg, device="meta"), gen, fan_in=True)
+    for k in t5_sd:  # T5 scales no score: q at d_kv^-1/2 keeps them O(1)
+        if k.endswith(".q.weight"):
+            t5_sd[k] = t5_sd[k] * t5_cfg.d_kv ** -0.5
+    lm_sd = random_state(MagnetLM(lm_cfg, device="meta"), gen, fan_in=True)
+    codec_sd = random_state(EncodecDecoder(codec_cfg, device="meta"), gen)
+    iface = MagnetInterface.from_modules(t5_cfg, t5_sd, lm_cfg, lm_sd, codec_cfg, codec_sd,
+                                         device="cuda")
+    del t5_sd, lm_sd, codec_sd
+    torch.cuda.empty_cache()
+    # a long wait: the group's requests, submitted together, form one group
+    engine = VampEngine(None, magnet=iface, max_batch=group, max_wait_ms=2000.0,
+                        pipeline_depth=2)
+    rng = np.random.default_rng(SEED + 29)
+    reqs = [MagnetRequest(text_ids=np.append(rng.integers(2, t5_cfg.vocab_size,
+                                                          int(rng.integers(8, 65)) - 1), 1),
+                          seconds=30.0, seed=int(rng.integers(1, 2 ** 31 - 1)),
+                          top_p=(0.9, 0.8, 0.95, 0.7)[i % 4],
+                          temperature=(3.0, 2.0, 3.5, 1.0)[i % 4], decoding_steps=steps)
+              for i in range(group)]
+
+    first = {}
+
+    def spy(owner, name, kind_of):
+        real = getattr(owner, name)
+
+        def call(*a, **kw):
+            kind = kind_of(*a, **kw)
+            if kind is not None and kind not in first:
+                first[kind] = ([x.clone() if torch.is_tensor(x) else x for x in a],
+                               {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()})
+            return real(*a, **kw)
+
+        # the wrapped function counts on the module's name for it: here
+        call.launches = 0
+        setattr(owner, name, call)
+        return real
+
+    def long_kind(q, k, v, bias=None, mask=None, window=None):
+        return "cross" if k.shape[1] != q.shape[1] else ("banded" if window else "full")
+
+    reals = {
+        "attention_fwd_masked": spy(fa, "attention_fwd_masked", lambda *a, **kw: "t5"),
+        "attention_fwd_long": spy(fa, "attention_fwd_long", long_kind),
+        "sampler": spy(gen_mod, "fused_sample_from_logits", lambda *a, **kw: "sampler"),
+    }
+    # the attention wrappers count on `fa`'s names (the spies while they are
+    # in place); the sampler on its own module's, which keeps the real one
+    counters = {"attention_fwd_long": fa.attention_fwd_long,
+                "attention_fwd_masked": fa.attention_fwd_masked,
+                "attention_fwd": fa.flash_attention_with_bias,
+                "sampler": reals["sampler"]}
+    try:
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        stats0 = dict(engine.stats)
+        t0 = time.perf_counter()
+        outs = [f.result() for f in [engine.submit(r) for r in reqs]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        fa.attention_fwd_masked = reals["attention_fwd_masked"]
+        fa.attention_fwd_long = reals["attention_fwd_long"]
+        gen_mod.fused_sample_from_logits = reals["sampler"]
+        engine.close()
+    n_steps = sum(steps)
+    want = {"attention_fwd_long": 2 * lm_cfg.n_layers * n_steps,
+            "attention_fwd_masked": t5_cfg.n_layers, "attention_fwd": 0, "sampler": n_steps}
+    if launches != want:
+        raise AssertionError(f"MAGNeT group launches {launches}, expected {want}")
+    rows = {k: engine.stats[k] - stats0[k] for k in ("magnet_rows", "cfg_rows", "batches")}
+    if rows["batches"] != 1 or rows["magnet_rows"] != group:
+        raise AssertionError(f"MAGNeT requests did not form one group of {group}: {rows}")
+    frames = iface.frames(30.0)
+    for codes, audio in outs:
+        if tuple(codes.shape) != (1, lm_cfg.n_q, frames) or bool((codes >= lm_cfg.card).any()):
+            raise AssertionError(f"MAGNeT codes {tuple(codes.shape)} or a mask id left")
+        if not np.isfinite(audio).all():
+            raise AssertionError("MAGNeT audio is not finite")
+    held = {}
+    for kind in ("t5", "full", "banded", "cross"):
+        (q, k, v, *rest), kw = first[kind]
+        out = reals["attention_fwd_masked" if kind == "t5" else "attention_fwd_long"](
+            q, k, v, *rest, **kw)
+        bias = rest[0] if rest else kw.get("bias")
+        mask = (rest[1] if len(rest) > 1 else kw.get("mask"))
+        window = rest[2] if len(rest) > 2 else kw.get("window")
+        ref = fa.attention_fwd_plain(q, k, v, bias, mask=fa.attention_mask(mask, q),
+                                     window=window)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        if bool((err > 2e-2 + 2e-2 * ref.float().abs()).any()):
+            raise AssertionError(f"MAGNeT {kind} attention disagrees on the path's inputs: "
+                                 f"max abs err {float(err.max())}")
+        held[kind] = dict(max_abs_err=float(err.max()), q=list(q.shape), k=list(k.shape),
+                          bias=None if bias is None else f"{list(bias.shape)} {bias.dtype}",
+                          mask=mask is not None, window=window,
+                          q_abs_max=float(q.float().abs().max()))
+    (keys, step_id, logits, temp, noise), kw = (first["sampler"][0][:5], first["sampler"][1])
+    tok, prob = reals["sampler"](keys, step_id, logits, temp, noise, **kw)
+    top_p = kw.pop("top_p")
+    rtok, rprob = fused_sample_plain(keys, step_id, logits, temp, noise, top_p, **kw)
+    torch.cuda.synchronize()
+    same = tok == rtok
+    ties = int((~(same & ((prob - rprob).abs() <= 1e-5))).sum())
+    if ties > tok.numel() // 1000:
+        raise AssertionError(f"MAGNeT sampler: {ties} of {tok.numel()} positions differ")
+    held["sampler"] = dict(shape=list(logits.shape), top_p=[round(float(x), 4) for x in top_p],
+                           token_mismatches=int((~same).sum()), tie_positions=ties,
+                           max_abs_err=float((prob - rprob).abs()[same].max()))
+    result = dict(steps=list(steps), group=group, wall_s=wall, launches=launches, stats=rows,
+                  held=held)
+    print("magnet engine: " + json.dumps(result))
     return result
 
 
@@ -4102,9 +4367,16 @@ def distributed_training_phase(codec, codebooks, gen, card):
     return summary, checks
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """Every phase; with `--only magnet`, the build and MAGNeT's phases."""
+    import argparse
+
     import numpy as np
     import torch
+
+    p = argparse.ArgumentParser(description="the port's checks on the card")
+    p.add_argument("--only", choices=("magnet",), default=None)
+    only = p.parse_args(argv).only
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4139,12 +4411,13 @@ def main() -> int:
             print(f"build: {line.strip()}")
     for name, (regs, spill_st, spill_ld) in kernel_registers().items():
         print(f"build: {regs:3d} registers, spills {spill_st}/{spill_ld} B  {name}")
-    # the forward's 16 instances (D, bf16 bias, lse, mask): the count is per
-    # thread at launch; setmaxnreg then moves registers from the producer
-    # warpgroup to the two consumer warpgroups
+    # the forward's 22 instances (D, bf16 bias, lse, mask; and MAGNeT's
+    # no-bias inference at D: full, persistent over few keys, banded): the
+    # count is per thread at launch; setmaxnreg then moves registers from
+    # the producer warpgroup to the two consumer warpgroups
     fwd_regs = registers_of("attention_fwd_kernel")
-    if len(fwd_regs) != 16:
-        raise AssertionError(f"expected 16 attention forward instances, found {sorted(fwd_regs)}")
+    if len(fwd_regs) != 22:
+        raise AssertionError(f"expected 22 attention forward instances, found {sorted(fwd_regs)}")
     for name, (regs, spill_st, spill_ld) in fwd_regs.items():
         print(f"build: attention forward {name.split()[-1]}: {regs} registers, spills "
               f"{spill_st}/{spill_ld} B")
@@ -4152,6 +4425,17 @@ def main() -> int:
     bwd_regs = registers_of("attention_bwd_kernel")
     if len(bwd_regs) != 8:
         raise AssertionError(f"expected 8 attention backward instances, found {sorted(bwd_regs)}")
+
+    if only == "magnet":
+        magnet_kernels = magnet_kernels_phase(
+            torch.Generator(device="cuda").manual_seed(SEED + 23))
+        magnet_kernels["engine"] = magnet_engine_phase(
+            torch.Generator(device="cuda").manual_seed(SEED + 29))
+        print("magnet kernels summary: " + json.dumps(magnet_kernels))
+        print(f"total wall: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "only": only}))
+        return 0
 
     # ---- 3. kernels against their plain versions ----
     codec_cfg, coarse_cfg, c2f_cfg = CodecConfig(), LMConfig.coarse(), LMConfig.c2f()
@@ -4211,6 +4495,11 @@ def main() -> int:
         results[name][shape] = check()
         print(f"kernel {name}[{shape}]: " + json.dumps(results[name][shape]))
     attn, samp = results["attention_fwd"], results["sampler"]
+    # MAGNeT's routes: no bias, the band, cross-attention, V = 2,048 (its own
+    # generator: the later phases draw what they drew before it)
+    magnet_kernels = magnet_kernels_phase(torch.Generator(device="cuda").manual_seed(SEED + 23))
+    magnet_kernels["engine"] = magnet_engine_phase(
+        torch.Generator(device="cuda").manual_seed(SEED + 29))
     # the GEMM's 4 tile widths (BN), set up like the attention kernels
     w8a8_regs = registers_of("w8a8_wgmma_kernel")
     if len(w8a8_regs) != 4:
@@ -4556,6 +4845,7 @@ def main() -> int:
     print("entry points summary: " + json.dumps(entry_points))
     print("multi-device summary: " + json.dumps(multi))
     print("distributed-training summary: " + json.dumps(dist))
+    print("magnet kernels summary: " + json.dumps(magnet_kernels))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -4566,4 +4856,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,9 @@
 // Fused MaskGIT token sampler for Hopper (sm_90a).
 //
 // Port of the Pallas kernel `_kernel` in vampnet_tpu/ops/sampler_kernel.py:80.
-// For every (row, position) it reads the V = 1024 logits once and, without
+// For every (row, position) it reads the V logits once (V = 1024, VampNet's
+// codebooks, or 2048, MAGNeT's; one instance each, chosen at launch) and,
+// without
 // writing anything back but the result:
 //   1. the locally-typical filter: bisection of the typicality threshold,
 //      24 steps, until the kept mass reaches typical_mass and the kept count
@@ -16,14 +18,18 @@
 //      argmax of the filtered logits (greedy);
 //   6. the chosen token's probability under the temperature softmax.
 //
-// Design: one warp per position, its 1024 logits in registers (32 a lane,
+// Design: one warp per position, its V logits in registers (V / 32 a lane,
 // loaded as float4), every reduction a butterfly of warp shuffles (each lane
 // ends with the same, bit-identical value, so all lanes take the same
-// bisection branch). Each warp owns 8 KB of shared memory for the
-// typicality distances c and probabilities p, and later for its lists, so
-// that the kernel fits in 80 registers and six blocks of four warps share an
-// SM (24 warps, three times the first design's), each a long dependent
-// chain of latency the others hide.
+// bisection branch). Each warp owns 8 V bytes of shared memory for the
+// typicality distances c and probabilities p, and later for its lists. At
+// V = 1024 the kernel fits in 80 registers and six blocks of four warps
+// share an SM (24 warps, three times the first design's), each a long
+// dependent chain of latency the others hide. At V = 2048 a lane holds 64
+// logits (and, under top-p, 64 probabilities): blocks of two warps, six to
+// an SM (12 warps, up to 168 registers a thread, 16 KB of shared memory a
+// warp); the Philox counter's third word runs to V / 4 = 512. The V = 1024
+// instance is the same code at the same constants, so its bits are unchanged.
 //  * The bisection's first FULL_STEPS steps run over all 1024 entries. Then
 //    an entry with c <= lo is inside for every later midpoint, and one with
 //    c > hi outside: their count (exact, an integer) and mass are carried,
@@ -54,15 +60,25 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int V = 1024;
-constexpr int PER_LANE = V / 32;
-constexpr int GROUPS = PER_LANE / 4;  // float4 groups a lane: vocab [128 i, 128 i + 128)
-constexpr int WARPS = 4;              // positions per block
-constexpr int BLOCKS_PER_SM = 6;      // 80 registers a thread, 32 KB of shared memory a block
 constexpr int BISECT_ITERS = 24;
 constexpr int FULL_STEPS = 6;  // typical-filter steps over all entries before the band list
+
+// The constants of one vocabulary size.
+template <int V_>
+struct Vocab {
+  static constexpr int V = V_;
+  static constexpr int PER_LANE = V / 32;
+  static constexpr int GROUPS = PER_LANE / 4;  // float4 groups a lane: vocab [128 i, 128 i + 128)
+  static constexpr int WARPS = V <= 1024 ? 4 : 2;  // positions per block: 32 KB of lists a block
+  static constexpr int BLOCKS_PER_SM = 6;  // 80 registers a thread at V = 1024, 168 at 2048
+  // bit j: slot j of a lane (its PER_LANE entries)
+  using Bits = typename std::conditional<(PER_LANE <= 32), uint32_t, unsigned long long>::type;
+  static_assert(V % 128 == 0 && PER_LANE <= 64, "V must be a multiple of 128, at most 2048");
+};
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -182,7 +198,7 @@ __device__ __forceinline__ void top_k_filter(float* A, int nk, int k, int lane) 
 // lane * chunk; for a long one (DENSE) runs of four from 4 (lane + 32 k),
 // where runs of `chunk` would put the lanes' reads on one bank, and a run
 // of four is one Philox group.
-template <bool DENSE>
+template <typename VC, bool DENSE>
 __device__ __forceinline__ void sample_tail(float* A, const float* B, int nk, int lane, int row,
                                             int pos, long long gpos, int step,
                                             const long long* __restrict__ keys,
@@ -191,6 +207,8 @@ __device__ __forceinline__ void sample_tail(float* A, const float* B, int nk, in
                                             const float* __restrict__ flag,
                                             long long* __restrict__ tokens,
                                             float* __restrict__ probs, int use_top_p) {
+  constexpr int V = VC::V;
+  constexpr int PER_LANE = VC::PER_LANE;
   const int chunk = DENSE ? PER_LANE : (nk + 31) >> 5;
   auto slot = [&](int i) {
     return DENSE ? 4 * (lane + 32 * (i >> 2)) + (i & 3) : lane * chunk + i;
@@ -304,12 +322,18 @@ __device__ __forceinline__ void sample_tail(float* A, const float* B, int nk, in
   }
 }
 
-__global__ void __launch_bounds__(WARPS * 32, BLOCKS_PER_SM) sampler_kernel(
+template <typename VC>
+__global__ void __launch_bounds__(VC::WARPS * 32, VC::BLOCKS_PER_SM) sampler_kernel(
     const float* __restrict__ logits, const long long* __restrict__ keys,
     const float* __restrict__ temperature, const float* __restrict__ top_p,
     const float* __restrict__ flag, long long* __restrict__ tokens,
     float* __restrict__ probs, int b, int flat, int step, int typical,
     float typical_mass, int typical_min_tokens, int top_k, int use_top_p) {
+  constexpr int V = VC::V;
+  constexpr int PER_LANE = VC::PER_LANE;
+  constexpr int GROUPS = VC::GROUPS;
+  constexpr int WARPS = VC::WARPS;
+  using Bits = typename VC::Bits;
   // per warp: c, then the band's c, then the kept logits (A); p, then the
   // band's p, then the kept vocab indices (B)
   __shared__ __align__(16) float lists[WARPS][2][V];
@@ -334,7 +358,7 @@ __global__ void __launch_bounds__(WARPS * 32, BLOCKS_PER_SM) sampler_kernel(
     x[4 * i + 3] = f.w;
   }
 
-  uint32_t keep = 0xffffffffu;  // bit j: slot j survives the typical filter
+  Bits keep = ~Bits(0);  // bit j: slot j survives the typical filter
   if (typical) {
     // log-softmax, entropy, typicality distance c = |-log p - H|
     float m = -CUDART_INF_F;
@@ -413,7 +437,7 @@ __global__ void __launch_bounds__(WARPS * 32, BLOCKS_PER_SM) sampler_kernel(
     // entry lands at or below its vocab index, which every lane has read)
     float mass_in = 0.f;
     int count_in = 0, nb = 0;
-    uint32_t in_bits = 0u, band_bits = 0u;  // bit j: slot j decided inside, in the band
+    Bits in_bits = 0, band_bits = 0;  // bit j: slot j decided inside, in the band
 #pragma unroll 1
     for (int i = 0; i < GROUPS; ++i) {
       const float4 c4 = reinterpret_cast<const float4*>(A)[i * 32 + lane];
@@ -428,8 +452,8 @@ __global__ void __launch_bounds__(WARPS * 32, BLOCKS_PER_SM) sampler_kernel(
         mass_in += in ? pv[e] : 0.f;
         count_in += in ? 1 : 0;
         band[e] = lo < cv[e] && cv[e] <= hi;
-        in_bits |= (uint32_t)in << (4 * i + e);
-        band_bits |= (uint32_t)band[e] << (4 * i + e);
+        in_bits |= (Bits)in << (4 * i + e);
+        band_bits |= (Bits)band[e] << (4 * i + e);
       }
       int slot[4];
       const int added = group_slots(band, nb, slot);
@@ -482,7 +506,7 @@ __global__ void __launch_bounds__(WARPS * 32, BLOCKS_PER_SM) sampler_kernel(
     keep = in_bits;
 #pragma unroll
     for (int j = 0; j < PER_LANE; ++j) {
-      if ((band_bits >> j) & 1u && typicality(x[j], m, lse, entropy) <= hi) keep |= 1u << j;
+      if ((band_bits >> j) & 1u && typicality(x[j], m, lse, entropy) <= hi) keep |= Bits(1) << j;
     }
     __syncwarp();  // every lane is done with the band before the lists reuse A and B
   }
@@ -509,12 +533,41 @@ __global__ void __launch_bounds__(WARPS * 32, BLOCKS_PER_SM) sampler_kernel(
   __syncwarp();
   if (top_k > 0 && top_k < nk) top_k_filter(A, nk, top_k, lane);
   if (nk > 128) {
-    sample_tail<true>(A, B, nk, lane, row, pos, gpos, step, keys, temperature, top_p, flag,
-                      tokens, probs, use_top_p);
+    sample_tail<VC, true>(A, B, nk, lane, row, pos, gpos, step, keys, temperature, top_p, flag,
+                          tokens, probs, use_top_p);
   } else {
-    sample_tail<false>(A, B, nk, lane, row, pos, gpos, step, keys, temperature, top_p, flag,
-                       tokens, probs, use_top_p);
+    sample_tail<VC, false>(A, B, nk, lane, row, pos, gpos, step, keys, temperature, top_p, flag,
+                           tokens, probs, use_top_p);
   }
+}
+
+template <typename VC>
+int launch_sampler(const void* logits, const void* keys, const void* temperature,
+                   const void* top_p, const void* flag, void* tokens, void* probs, int b,
+                   int flat, int step, int typical, float typical_mass, int typical_min_tokens,
+                   int top_k, int use_top_p, int device, void* stream) {
+  // Host threads may launch concurrently (the serving engine's dispatcher
+  // beside the web app's handlers). The flag only skips a repeat of the
+  // call below, which sets one constant attribute and is idempotent, so
+  // threads that race past an unset flag each set the same value.
+  static bool carveout_set[64] = {};  // per device
+  if (device >= 64 || !carveout_set[device]) {
+    // as much of the SM's memory as shared memory as the blocks need
+    cudaError_t err = cudaFuncSetAttribute(sampler_kernel<VC>,
+                                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 64) carveout_set[device] = true;
+  }
+  const long long n = (long long)b * flat;
+  const unsigned blocks = (unsigned)((n + VC::WARPS - 1) / VC::WARPS);
+  sampler_kernel<VC><<<blocks, VC::WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(logits), static_cast<const long long*>(keys),
+      static_cast<const float*>(temperature), static_cast<const float*>(top_p),
+      static_cast<const float*>(flag), static_cast<long long*>(tokens),
+      static_cast<float*>(probs), b, flat, step, typical, typical_mass,
+      typical_min_tokens, top_k, use_top_p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -524,30 +577,17 @@ extern "C" int vampnet_sampler(const void* logits, const void* keys, const void*
                                int b, int flat, int vocab, int step, int typical,
                                float typical_mass, int typical_min_tokens, int top_k,
                                int use_top_p, int device, void* stream) {
-  if (vocab != V || b <= 0 || flat <= 0 || top_k < 0 || top_k > V) {
+  if ((vocab != 1024 && vocab != 2048) || b <= 0 || flat <= 0 || top_k < 0 || top_k > vocab) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // Host threads may launch concurrently (the serving engine's dispatcher
-  // beside the web app's handlers). The flag only skips a repeat of the
-  // call below, which sets one constant attribute and is idempotent, so
-  // threads that race past an unset flag each set the same value.
-  static bool carveout_set[64] = {};  // per device
-  if (device >= 64 || !carveout_set[device]) {
-    // as much of the SM's memory as shared memory as the blocks need
-    err = cudaFuncSetAttribute(sampler_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    if (device < 64) carveout_set[device] = true;
+  if (vocab == 1024) {
+    return launch_sampler<Vocab<1024>>(logits, keys, temperature, top_p, flag, tokens, probs, b,
+                                       flat, step, typical, typical_mass, typical_min_tokens,
+                                       top_k, use_top_p, device, stream);
   }
-  const long long n = (long long)b * flat;
-  const unsigned blocks = (unsigned)((n + WARPS - 1) / WARPS);
-  sampler_kernel<<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<const long long*>(keys),
-      static_cast<const float*>(temperature), static_cast<const float*>(top_p),
-      static_cast<const float*>(flag), static_cast<long long*>(tokens),
-      static_cast<float*>(probs), b, flat, step, typical, typical_mass,
-      typical_min_tokens, top_k, use_top_p);
-  return (int)cudaGetLastError();
+  return launch_sampler<Vocab<2048>>(logits, keys, temperature, top_p, flag, tokens, probs, b,
+                                     flat, step, typical, typical_mass, typical_min_tokens,
+                                     top_k, use_top_p, device, stream);
 }

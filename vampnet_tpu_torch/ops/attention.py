@@ -33,11 +33,13 @@ MASK_FILL = -1e9  # the JAX package's fill for a blocked score
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    mask: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(d) + bias) v with fp32 scores, the probabilities
     cast to v's dtype before the PV product, fp32 accumulation, output in v's
-    dtype. q, k, v: (b, t, h, d); bias: (h, t_q, t_k); mask: (b, t_q, t_k) or
-    (b, 1, t_q, t_k), 0 = blocked, whose scores become -1e9 after the bias."""
+    dtype. q: (b, t_q, h, d); k, v: (b, t_k, h, d); bias: (h, t_q, t_k);
+    mask: (b, t_q, t_k) or (b, 1, t_q, t_k), 0 = blocked, whose scores become
+    -1e9 after the bias; `window` w drops the keys with |i - j| > w."""
     d = q.shape[-1]
     scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale.to(q.device)
@@ -47,6 +49,11 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if mask.dim() == 3:
             mask = mask[:, None]
         scores = torch.where(mask == 0, torch.tensor(MASK_FILL, device=q.device), scores)
+    if window is not None:
+        from .flash_attention import band
+
+        scores = scores.masked_fill(~band(q.shape[1], k.shape[1], window, q.device),
+                                    float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
@@ -76,19 +83,24 @@ def attention_library(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           mask: Optional[torch.Tensor] = None,
-                          impl: str = "auto") -> torch.Tensor:
+                          impl: str = "auto", window: Optional[int] = None) -> torch.Tensor:
     """q, k, v: (b, t, h, d); bias: (h, t, t) head-shared; mask: (b, t, t) or
-    (b, 1, t, t), 0 = blocked. Routes by `impl` as the module docstring says."""
+    (b, 1, t, t), 0 = blocked. Without a bias or mask, k and v may be
+    (b, t_k, h, d), and `window` w keeps the keys with |i - j| <= w (the
+    kernels' inference route, `attention_plain` on the CPU). Routes by
+    `impl` as the module docstring says."""
     if impl == "ring":
         raise RuntimeError(
             "attention_impl='ring' runs only in a ring context: a RingStack over an sp mesh "
             "(Interface.shard(sp=N), or VampNetLM.forward(stack=RingStack(lm, devices)))")
     if impl == "xla":
+        if window is not None:
+            raise ValueError("the library route takes no window")
         return attention_library(q, k, v, bias, mask)
     if impl not in IMPLS:
         raise ValueError(f"attention impl must be one of {IMPLS}, got {impl!r}")
     if q.is_cuda or impl == "pallas":
         from .flash_attention import flash_attention_with_bias
 
-        return flash_attention_with_bias(q, k, v, bias, mask)
-    return attention_plain(q, k, v, bias, mask)
+        return flash_attention_with_bias(q, k, v, bias, mask, window)
+    return attention_plain(q, k, v, bias, mask, window)

@@ -42,6 +42,9 @@ _SIGNATURES = {
     # q, k, v, bias, bias_is_bf16, mask, out, lse, b, t, h, d, q_scale, device,
     # stream
     "vampnet_attention_fwd_lse": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, out, b, t_q, t_k, h, d, window (-1: none), q_scale, device,
+    # stream: no bias, no mask
+    "vampnet_attention_fwd_nobias": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # q, k, v, bias, bias_is_bf16, mask, rows (lse and delta per query tile),
     # do, dq_acc, dk, dv, dbias, part (scratch), b, t, h, d, q_scale, device,
     # stream

@@ -51,6 +51,15 @@ launches:
     bias: q, k, v, o 35 MB and the bias 119 MB, 46 us if the bias is read
     once, against 30.4 GFLOP, 31 us: bound by bytes.
 
+Without a bias or a mask (MAGNeT's layers), the inference forward takes
+the kernel's no-bias instances (`vampnet_attention_fwd_nobias`), which
+allocate and read no bias: k and v may hold t_k != t keys (cross-attention
+over a text), and `window` w keeps only the keys with |i - j| <= w (the
+restricted context), loading only the key tiles of the band. Such short
+items run persistent, one block an SM. At (16, 1,500, 24, 64) on an H100:
+full 0.74 ms (bound 0.22, operations), w = 5 0.13 ms (bound 0.088, bytes),
+t_k = 64 0.074 ms (bound 0.046); `chip_smoke.py`'s `magnet_kernels_phase`.
+
 Training, the `_AttentionCore` Function (the counterpart of the JAX custom
 VJP `_attention_core`, `flash_attention.py:546-848`), at every t:
   * forward `attention_fwd_lse` (`attention_fwd_lse_masked` with a mask):
@@ -156,35 +165,47 @@ def attention_mask(mask: Optional[torch.Tensor], q: torch.Tensor) -> Optional[to
     return (mask if mask.dtype == torch.bool else mask != 0).contiguous()
 
 
-def _scores(qs, k, b2, mask=None):
-    """s = q_s k^T + b_2 in the accumulation dtype, (b, h, t_q, t_k), and
-    -1e9 where the mask blocks."""
+def band(t_q: int, t_k: int, window: int, device) -> torch.Tensor:
+    """(t_q, t_k) bool: True where |i - j| <= window."""
+    rel = torch.arange(t_k, device=device)[None, :] - torch.arange(t_q, device=device)[:, None]
+    return rel.abs() <= window
+
+
+def _scores(qs, k, b2, mask=None, window: Optional[int] = None):
+    """s = q_s k^T + b_2 in the accumulation dtype, (b, h, t_q, t_k), -1e9
+    where the mask blocks, and -inf (no weight at all) outside the window."""
     acc = _acc(qs)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.to(acc), k.to(acc))
     s = s if b2 is None else s + b2.to(acc)[None]
     if mask is not None:
         s = torch.where(mask[:, None], s, torch.tensor(MASKED_SCORE, dtype=acc, device=s.device))
+    if window is not None:
+        s = s.masked_fill(~band(s.shape[2], s.shape[3], window, s.device), float("-inf"))
     return s
 
 
 def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor] = None,
                         q_scale: Optional[float] = None,
-                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        mask: Optional[torch.Tensor] = None,
+                        window: Optional[int] = None) -> torch.Tensor:
     """The inference kernels' function in plain PyTorch, step for step as the
-    Pallas path computes it (prefolds, base-2 softmax, normalise after PV)."""
-    return attention_fwd_lse_plain(q, k, v, bias, q_scale, mask)[0]
+    Pallas path computes it (prefolds, base-2 softmax, normalise after PV).
+    k and v may hold another number of keys than q has queries (no bias or
+    mask then); `window` w keeps only the keys with |i - j| <= w."""
+    return attention_fwd_lse_plain(q, k, v, bias, q_scale, mask, window)[0]
 
 
 def attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             bias: Optional[torch.Tensor] = None,
                             q_scale: Optional[float] = None,
-                            mask: Optional[torch.Tensor] = None):
+                            mask: Optional[torch.Tensor] = None,
+                            window: Optional[int] = None):
     """K4's function: (out (b, t, h, d) in v's dtype, lse (b*h, t) in fp32),
     lse the base-2 log-sum-exp of each query row's scores."""
     b, t, h, _ = q.shape
     qs, b2 = _prefold(q, bias, q_scale)
-    s = _scores(qs, k, b2, attention_mask(mask, q))
+    s = _scores(qs, k, b2, attention_mask(mask, q), window)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)  # (b, h, q, 1)
@@ -331,17 +352,48 @@ def _mask_ptr(mask):
     return 0 if mask is None else mask.data_ptr()
 
 
-def _launch_fwd(q, k, v, bias, mask, with_lse: bool):
+def _check_nobias(q, k, v, window):
+    """q (b, t_q, h, d) and k, v (b, t_k, h, d) bf16 on one CUDA device; a
+    window needs t_k = t_q."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("q, k, v must lie on one CUDA device")
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"the attention kernels take bf16 q/k/v, got {q.dtype}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or k.shape[0] != q.shape[0] \
+            or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"q (b, t_q, h, d) and k, v (b, t_k, h, d), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    kernel_head_dim(q.shape[-1])
+    if window is not None and (window < 0 or k.shape[1] != q.shape[1]):
+        raise ValueError(f"a window w >= 0 needs as many keys as queries, got w={window}, "
+                         f"t_q={q.shape[1]}, t_k={k.shape[1]}")
+
+
+def _launch_fwd(q, k, v, bias, mask, with_lse: bool, window: Optional[int] = None):
     """One launch of the forward kernel (with lse rows or without) on CUDA
-    tensors; mask None or a contiguous bool (b, t, t) on q's device."""
+    tensors; mask None or a contiguous bool (b, t, t) on q's device. Without
+    a bias, a mask or lse rows it takes the kernel's no-bias instances,
+    which read no bias, take k and v of another length than q, and a
+    window."""
     what = "attention forward-with-lse" if with_lse else "attention"
     build.refuse_grad(what, q, k, v, bias)
-    _check(q, k, v, bias)
     b, t, h, d = q.shape
+    lib = build.library()
+    if bias is None and mask is None and not with_lse:
+        _check_nobias(q, k, v, window)
+        dk, q_scale, (qp, kp, vp) = _padded(q, k, v)
+        out = torch.empty_like(qp)
+        build.check(lib.vampnet_attention_fwd_nobias(
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), b, t, k.shape[1], h, dk,
+            -1 if window is None else int(window), q_scale, q.device.index or 0, _stream(q)),
+            what)
+        return out[..., :d]
+    if window is not None:
+        raise ValueError("a window is taken only without a bias, a mask or lse rows")
+    _check(q, k, v, bias)
     dk, q_scale, (qp, kp, vp) = _padded(q, k, v)
     bias = _bias_or_zeros(bias, q)
     out = torch.empty_like(qp)
-    lib = build.library()
     flags = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), bias.data_ptr(),
              int(bias.dtype == torch.bfloat16), _mask_ptr(mask), out.data_ptr())
     tail = (b, t, h, dk, q_scale, q.device.index or 0, _stream(q))
@@ -354,14 +406,17 @@ def _launch_fwd(q, k, v, bias, mask, with_lse: bool):
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  bias: Optional[torch.Tensor] = None,
+                  window: Optional[int] = None) -> torch.Tensor:
     """The inference kernel (K1): q, k, v (b, t, h, d <= 128) bf16, bias
-    (h, t, t) bf16 or fp32 or None. Forward-only. CPU tensors take
-    `attention_fwd_plain`; CUDA tensors launch the kernel and count the launch
-    on `flash_attention_with_bias.launches`."""
+    (h, t, t) bf16 or fp32 or None. Without a bias, k and v may be
+    (b, t_k, h, d) (cross-attention) and `window` w keeps the keys with
+    |i - j| <= w; nothing of a bias is then allocated or read. Forward-only.
+    CPU tensors take `attention_fwd_plain`; CUDA tensors launch the kernel
+    and count the launch on `flash_attention_with_bias.launches`."""
     if q.device.type == "cpu":
-        return attention_fwd_plain(q, k, v, bias)
-    out = _launch_fwd(q, k, v, bias, None, with_lse=False)
+        return attention_fwd_plain(q, k, v, bias, window=window)
+    out = _launch_fwd(q, k, v, bias, None, with_lse=False, window=window)
     flash_attention_with_bias.launches += 1
     return out
 
@@ -380,14 +435,16 @@ def attention_fwd_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_fwd_long(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        bias: Optional[torch.Tensor] = None,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mask: Optional[torch.Tensor] = None,
+                       window: Optional[int] = None) -> torch.Tensor:
     """The inference forward past `MAX_SINGLE_PASS_SEQ` (K9), with or without
-    a mask: the K1 kernel, whose key loop has no upper t. Counts on its own
+    a mask: the K1 kernel, whose key loop has no upper t; without a bias or
+    mask, with K1's cross-attention and window. Counts on its own
     `launches`."""
     mask = attention_mask(mask, q)
     if q.device.type == "cpu":
-        return attention_fwd_plain(q, k, v, bias, mask=mask)
-    out = _launch_fwd(q, k, v, bias, mask, with_lse=False)
+        return attention_fwd_plain(q, k, v, bias, mask=mask, window=window)
+    out = _launch_fwd(q, k, v, bias, mask, with_lse=False, window=window)
     attention_fwd_long.launches += 1
     return out
 
@@ -520,21 +577,28 @@ class _AttentionCore(torch.autograd.Function):
 
 def flash_attention_with_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               bias: Optional[torch.Tensor] = None,
-                              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              mask: Optional[torch.Tensor] = None,
+                              window: Optional[int] = None) -> torch.Tensor:
     """q, k, v: (b, t, h, d <= 128); bias: (h, t, t) or None; mask: (b, t, t)
-    or (b, 1, t, t), 0 = blocked, or None. When grad mode is on and an input
-    requires grad, the call goes through `_AttentionCore` (kernels on the
-    card at every t, plain versions on the CPU); otherwise through the
+    or (b, 1, t, t), 0 = blocked, or None. Without a bias or a mask, k and v
+    may hold t_k != t keys (cross-attention) and `window` w keeps only the
+    keys with |i - j| <= w (inference only). When grad mode is on and an
+    input requires grad, the call goes through `_AttentionCore` (kernels on
+    the card at every t, plain versions on the CPU); otherwise through the
     inference route: `attention_fwd_long` past `MAX_SINGLE_PASS_SEQ`,
     `attention_fwd_masked` with a mask, `attention_fwd` without."""
     mask = attention_mask(mask, q)
     if build.needs_grad(q, k, v, bias):
+        if window is not None or k.shape[1] != q.shape[1]:
+            raise ValueError("the training kernels take neither a window nor t_k != t_q")
         return _AttentionCore.apply(q, k, v, bias, mask)
     if q.shape[1] > MAX_SINGLE_PASS_SEQ:
-        return attention_fwd_long(q, k, v, bias, mask)
+        return attention_fwd_long(q, k, v, bias, mask, window)
     if mask is not None:
+        if window is not None:
+            raise ValueError("a window is taken only without a bias or a mask")
         return attention_fwd_masked(q, k, v, bias, mask)
-    return attention_fwd(q, k, v, bias)
+    return attention_fwd(q, k, v, bias, window)
 
 
 flash_attention_with_bias.launches = 0

@@ -32,6 +32,7 @@ depend only on its key and its own logits, never on its batch-mates.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -204,3 +205,91 @@ def generate(
 
     out = torch.cat([z[:, :ncc, :], codebook_unflatten(sampled, n_infer)], dim=1)
     return out[:nb]
+
+
+MAGNET_KEEP_SCORE = -1e4  # audiocraft's DONT_REMASK_ME_SCORE: a span kept for good
+MAGNET_SPAN = 3  # frames a span: MAGNeT's unit of re-masking
+
+
+def magnet_schedule(step: int, steps: int) -> float:
+    """MAGNeT's mask share at `step` of `steps`: cos(pi / 2 * step / (steps - 1))
+    over torch.linspace(0, 1, steps), in fp32 as audiocraft computes it."""
+    timestep = torch.linspace(0, 1, steps)[step]
+    return float(torch.cos(timestep * math.pi * 0.5))
+
+
+def magnet_generate(
+    forward_fn: Callable[[torch.Tensor, int], torch.Tensor],
+    b: int,
+    n_q: int,
+    t: int,
+    mask_id: int,
+    row_keys: torch.Tensor,  # (b, 2) int64
+    decoding_steps=(60, 10, 10, 10),
+    top_p=0.9,
+    temperature=3.0,
+    max_cfg_coef=10.0,
+    min_cfg_coef=1.0,
+) -> torch.Tensor:
+    """MAGNeT's stage loop (audiocraft's `MagnetLMModel._generate_stage`,
+    text-to-music from no prompt); returns codes (b, n_q, t).
+
+    One stage per codebook, `decoding_steps[s]` steps each. All codebooks
+    start at the mask id; while stage s runs, the codebooks above it hold
+    the mask id and those below it their final tokens. At step i of n, with
+    mask share p = cos(pi / 2 * i / (n - 1)):
+      * the max(int(p * n_spans), 1) spans of `MAGNET_SPAN` frames with the
+        highest scores come back masked (at step 0 every span: all scores
+        are 0), ties broken towards the lower span index;
+      * `forward_fn(codes (2b, n_q, t), stage)` runs the doubled CFG rows
+        (the first b conditioned, the last b not) to the stage head's fp32
+        logits (2b, t, V); the guided logits are
+        uncond + (cond - uncond) * (p * max_cfg + (1 - p) * min_cfg);
+      * they are divided by the annealed temperature
+        max(temperature * (n - 1 - i) / n, 0.01) and sampled by the sampler
+        (K10 on the card) at temperature 1 with top-p on them, per-row keys
+        and the step counter of the whole loop, so that no two steps share
+        draws; masked positions take the sampled tokens;
+      * a span's score is 1 - the largest probability of its sampled tokens
+        under the sampler's kept distribution (top-p renormalised), and a
+        span not masked at this step scores `MAGNET_KEEP_SCORE`.
+    `top_p`, `temperature`, `max_cfg_coef` and `min_cfg_coef` are scalars
+    or per-row (b,) values. While tracing, each stage records a
+    `magnet.stage` span (stage, steps, rows)."""
+    from .. import profiling
+
+    dev = row_keys.device
+    if t % MAGNET_SPAN:
+        raise ValueError(f"{t} frames are not whole spans of {MAGNET_SPAN}")
+    n_spans = t // MAGNET_SPAN
+    temp = _row_tensor(temperature, b, dev)
+    cfg_max = _row_tensor(max_cfg_coef, b, dev)[:, None, None]
+    cfg_min = _row_tensor(min_cfg_coef, b, dev)[:, None, None]
+    top_p_rows = _row_tensor(top_p, b, dev)
+    ones = torch.ones((b,), dtype=torch.float32, device=dev)
+    codes = torch.full((b, n_q, t), mask_id, dtype=torch.int64, device=dev)
+    step_id = 0
+    for stage, n_steps in enumerate(decoding_steps):
+        with profiling.span("magnet.stage", stage=stage, steps=int(n_steps), rows=2 * b):
+            scores = torch.zeros((b, n_spans), dtype=torch.float32, device=dev)
+            for i in range(n_steps):
+                p = magnet_schedule(i, n_steps)
+                n_masked = max(int(p * n_spans), 1)
+                order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+                chosen = torch.zeros_like(scores, dtype=torch.bool).scatter_(
+                    1, order[:, :n_masked], True)
+                frame_mask = chosen.repeat_interleave(MAGNET_SPAN, dim=1)
+                codes[:, stage] = torch.where(frame_mask, mask_id, codes[:, stage])
+                logits = forward_fn(torch.cat([codes, codes]), stage)
+                cond, uncond = logits[:b], logits[b:]
+                coef = p * cfg_max + (1.0 - p) * cfg_min
+                inv_t = 1.0 / torch.clamp(temp * ((n_steps - 1 - i) / n_steps), min=1e-2)
+                guided = (uncond + (cond - uncond) * coef) * inv_t[:, None, None]
+                tokens, probs = fused_sample_from_logits(
+                    row_keys, step_id, guided.contiguous(), ones, ones, top_p=top_p_rows,
+                    typical_filtering=False, use_top_p=True)
+                codes[:, stage] = torch.where(frame_mask, tokens, codes[:, stage])
+                span_best = probs.reshape(b, n_spans, MAGNET_SPAN).amax(dim=-1)
+                scores = torch.where(chosen, 1.0 - span_best, MAGNET_KEEP_SCORE)
+                step_id += 1
+    return codes

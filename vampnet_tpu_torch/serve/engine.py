@@ -35,6 +35,17 @@ With `data_parallel=True` (after `Interface.shard()` or `shard_pipeline()`)
 a group is rounded up to a multiple of the mesh's dp size by repeating its
 last request (the extra rows' outputs are dropped), and its rows split over
 the dp groups of the mesh (`parallel/placement.py`).
+
+A second kind of request, `MagnetRequest` (text-to-music through a
+`MagnetInterface`, `magnet=`), goes through the same queue, dispatcher,
+collector and static-key grouping: its key is the duration's frames, the
+decoding steps and the group's text length (the longest text rounded up to
+`MagnetInterface.text_bucket`). A group runs T5 and its projection, the
+stage loop on doubled CFG rows, and the EnCodec decode; each future gets
+(codes (1, n_q, frames), audio (1, 1, samples)). Its rows' keys come from
+their own seeds, so a request gets the same tokens alone or batched with
+requests of the same text length. The engine counts the groups' rows and
+their CFG rows (`stats["magnet_rows"]`, `stats["cfg_rows"]`).
 """
 from __future__ import annotations
 
@@ -70,23 +81,43 @@ class VampRequest:
     trace_id: Optional[int] = None  # shared with the caller's spans (profiling.py)
 
 
+@dataclasses.dataclass
+class MagnetRequest:
+    """Text-to-music: T5 ids (any length), the seconds of audio, the seed of
+    the row's key and the sampling knobs (`magnet.DEFAULTS`)."""
+
+    text_ids: np.ndarray  # (l,) int
+    seconds: float = 30.0
+    seed: int = 0
+    top_p: float = 0.9
+    temperature: float = 3.0
+    max_cfg_coef: float = 10.0
+    min_cfg_coef: float = 1.0
+    decoding_steps: Tuple[int, ...] = (60, 10, 10, 10)
+    trace_id: Optional[int] = None
+
+
 class VampEngine:
     def __init__(
         self,
-        interface,
+        interface=None,
         max_batch: int = 8,
         max_wait_ms: float = 5.0,
         bucket_tokens: Optional[int] = None,
         data_parallel: bool = False,
         pipeline_depth: int = 2,
+        magnet=None,
     ):
         """With `data_parallel=True` (which needs a prior `interface.shard()`),
         a group's rows split over the mesh's dp groups while the weights
-        stay replicated."""
+        stay replicated. `interface` (VampNet's) serves `VampRequest`s,
+        `magnet` (a `MagnetInterface`) `MagnetRequest`s; either may be None."""
         self.interface = interface
+        self.magnet = magnet
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
-        self.bucket_tokens = bucket_tokens or interface.s2t(interface.coarse.chunk_size_s)
+        self.bucket_tokens = bucket_tokens or (
+            interface.s2t(interface.coarse.chunk_size_s) if interface is not None else None)
         self.data_parallel = data_parallel
         mesh = getattr(interface, "_mesh", None)
         if data_parallel:
@@ -100,7 +131,8 @@ class VampEngine:
         self._inflight: "queue.Queue[Optional[Tuple[Any, List, List[int]]]]" = queue.Queue(
             maxsize=max(1, pipeline_depth))
         self._stop = threading.Event()
-        self.stats = {"batches": 0, "requests": 0, "batched_requests": 0}
+        self.stats = {"batches": 0, "requests": 0, "batched_requests": 0, "magnet_rows": 0,
+                      "cfg_rows": 0}
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._collector = threading.Thread(target=self._collect_loop, daemon=True)
         self._thread.start()
@@ -127,7 +159,7 @@ class VampEngine:
                 f.result()
         return self
 
-    def submit(self, req: VampRequest) -> Future:
+    def submit(self, req) -> Future:
         fut: Future = Future()
         self._q.put((req, fut, profiling.stamp()))
         return fut
@@ -165,6 +197,15 @@ class VampEngine:
 
     # ---------------- scheduler ----------------
 
+    def _key(self, req):
+        if isinstance(req, MagnetRequest):
+            m = self.magnet
+            if m is None:
+                raise ValueError("a MagnetRequest needs an engine built with magnet=")
+            return ("magnet", m.frames(req.seconds), tuple(int(n) for n in req.decoding_steps),
+                    m.text_len(len(req.text_ids)))
+        return self._static_key(req, self._bucket_len(req.codes.shape[-1]))
+
     def _static_key(self, req: VampRequest, t_bucket: int):
         return (
             t_bucket,
@@ -199,11 +240,15 @@ class VampEngine:
                         batch.append(self._q.get(timeout=remaining))
                     except queue.Empty:
                         break
-                groups: Dict[Any, List[Tuple[VampRequest, Future]]] = {}
+                groups: Dict[Any, List[Tuple[Any, Future]]] = {}
                 for req, fut, t_submit in batch:
                     if t_submit is not None:
                         profiling.record("engine.queue", t_submit, request=req.trace_id)
-                    key = self._static_key(req, self._bucket_len(req.codes.shape[-1]))
+                    try:
+                        key = self._key(req)
+                    except Exception as e:  # the request's future carries it
+                        _fail([(req, fut)], e)
+                        continue
                     groups.setdefault(key, []).append((req, fut))
                 # stats before any future resolves: callers read them as
                 # soon as their result lands
@@ -216,7 +261,10 @@ class VampEngine:
                         with profiling.span("engine.dispatch",
                                             requests=[r.trace_id for r, _ in items],
                                             rows=len(items)):
-                            out, lens = self._dispatch_group(key, items)
+                            if key[0] == "magnet":
+                                out, lens = self._dispatch_magnet(key, items)
+                            else:
+                                out, lens = self._dispatch_group(key, items)
                     except Exception as e:  # the group's futures carry it
                         _fail(items, RuntimeError(f"{e}\n{traceback.format_exc()}"))
                         continue
@@ -241,14 +289,16 @@ class VampEngine:
                 if item is None:
                     return
                 out, items, lens = item
-                try:
-                    out_np = out.cpu().numpy()
+                try:  # a MAGNeT group's out is (codes, audio), its lens None
+                    out_np = tuple(x.cpu().numpy() for x in out) if lens is None \
+                        else out.cpu().numpy()
                 except Exception as e:  # a failure on the card
                     _fail(items, RuntimeError(f"{e}\n{traceback.format_exc()}"))
                     continue
                 for i, (_req, fut) in enumerate(items):
                     if not fut.done():
-                        fut.set_result(out_np[i:i + 1, :, :lens[i]])
+                        fut.set_result(tuple(x[i:i + 1] for x in out_np) if lens is None
+                                       else out_np[i:i + 1, :, :lens[i]])
 
     def _dispatch_group(self, key, items: List[Tuple[VampRequest, Future]]):
         iface = self.interface
@@ -292,6 +342,34 @@ class VampEngine:
             out = iface.coarse_to_fine(out, mask=mask_d, seed=seeds_c2f, **knobs)
         # no sync here: the collector's copy to the host waits for the kernels
         return out, lens
+
+    def _dispatch_magnet(self, key, items):
+        """One MAGNeT group: T5, the stage loop and the decode, queued on the
+        card; returns ((codes, audio), None)."""
+        from ..magnet import text_batch
+
+        if self.data_parallel:
+            raise ValueError("MAGNeT requests are not served data parallel")
+        m = self.magnet
+        _, frames, steps, text_len = key
+        reqs = [r for r, _ in items]
+        n = len(reqs)
+        ids, mask = text_batch([r.text_ids for r in reqs], text_len, m.device)
+        dev = m.device
+
+        def rows(values):
+            return to_device(np.array(values, dtype=np.float32), dev)
+
+        keys = np.zeros((n, 2), dtype=np.int64)  # a seed s is the key (0, s mod 2^32)
+        keys[:, 1] = np.array([r.seed for r in reqs], dtype=np.int64) & 0xFFFFFFFF
+        self.stats["magnet_rows"] += n
+        self.stats["cfg_rows"] += n
+        codes = m.generate(
+            m.encode_text(ids, mask), frames, to_device(keys, dev), decoding_steps=steps,
+            top_p=rows([r.top_p for r in reqs]), temperature=rows([r.temperature for r in reqs]),
+            max_cfg_coef=rows([r.max_cfg_coef for r in reqs]),
+            min_cfg_coef=rows([r.min_cfg_coef for r in reqs]))
+        return (codes, m.decode(codes)), None
 
 
 def _fail(items, exc: BaseException):
