@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (`vampnet_tpu_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py [--only magnet]
+    python3 chip_smoke.py [--only magnet|snake]
 
 Phases, each of which must pass (no failure is caught):
   1. print the card (`nvidia-smi`);
@@ -166,6 +166,19 @@ the sampler at V = 2,048) and one full-width MAGNeT engine group
 forward, the three no-bias forwards and the sampler held to their plain
 versions on the inputs the path gave them). `python3 chip_smoke.py --only
 magnet` runs the build and these two alone.
+After the bucket table's gradient comes the LAC codec's fused snake
+(`snake_phase`): the kernel bit for bit with the eager chain at every
+encoder and decoder width of 10 s at b = 8, with and without the residual
+and the kept sum, and at edge rows (t % 4 != 0, rows at odd offsets,
+|alpha x| past 1e5, alphas near 0 and negative), timed at the first
+stage's shape; then the full-width codec's fused route against its plain
+composition (latents, codes and waveform bit for bit, 29 launches an
+encode and 29 a decode, the b = 8 encode's time and peak memory by each
+route), and the matmul schedule's fused route against its own plain
+composition. Phases 4 and 5 count the kernel on the main paths: 58 launches
+in each served request (the encode and the two-row decode), 29 in each
+training step. `python3 chip_smoke.py --only snake` runs the build and the
+snake phase alone.
 Phase 3 also holds the w8a8 kernel (bit for bit) and the fused-FFN kernels
 against their plain versions at the serving shapes, the w8a8 kernel also at
 ragged shapes (m 1, 37, 300; k 16, 80, 2,560; n 8, 40, 5,128; bf16 and fp32
@@ -553,6 +566,212 @@ def check_relative_bias(h, t_q, t_k, gen, timed=True, dtype=None):
           f"({res['gbytes_per_s']:.0f} GB/s), bound {bound_ms:.4f} ms, plain "
           f"{res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} ms")
     return res
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes and equal fp32 bit patterns (NaNs included)."""
+    import torch
+
+    return a.shape == b.shape and bool((a.view(torch.int32) == b.view(torch.int32)).all())
+
+
+def check_snake(b, c, t, gen, residual=False, keep_sum=False, timed=False, alpha=None,
+                scale=1.0, offset=0):
+    """The fused snake kernel at (b, c, t) against its plain version (the
+    eager chain: the conv's bias add, the residual add, `snake`) on the same
+    fp32 inputs, bit for bit. `alpha` replaces the per-channel alphas
+    (0.5-1.5 by default), `scale` multiplies y and the residual, and
+    `offset` starts y and the residual that many floats into their buffers
+    (an offset of 1 puts them off the outputs' 16 bytes: the kernel's
+    one-at-a-time path). Timed: the kernel, its bound (each tensor read or
+    written once) and the eager chain."""
+    import torch
+
+    from vampnet_tpu_torch.ops.snake import snake_fused, snake_fused_plain
+
+    def operand():
+        n = b * c * t
+        buf = torch.empty(n + offset, device="cuda")
+        buf[offset:] = scale * torch.randn(n, generator=gen, device="cuda")
+        return buf[offset:].view(b, c, t)
+
+    y = operand()
+    res = operand() if residual else None
+    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    if alpha is None:
+        alpha = 0.5 + torch.rand(c, generator=gen, device="cuda")
+    alpha = alpha.expand(c).contiguous()
+    got = snake_fused(y, bias, alpha, res, keep_sum=keep_sum)
+    want = snake_fused_plain(y, bias, alpha, res, keep_sum=keep_sum)
+    torch.cuda.synchronize()
+    got, want = (got, want) if keep_sum else ((got,), (want,))
+    for g, w in zip(got, want):
+        if not same_bits(g, w):
+            n_bad = int((g.view(torch.int32) != w.view(torch.int32)).sum())
+            raise AssertionError(
+                f"snake (b, c, t)=({b}, {c}, {t}) residual={residual} keep_sum={keep_sum} "
+                f"offset={offset} scale={scale}: {n_bad} of {g.numel()} elements differ from "
+                f"the eager chain, max abs {float((g - w).abs().max())}")
+    res_ = dict(bitwise=True, finite=bool(torch.isfinite(got[-1]).all()))
+    if not timed:
+        return res_
+    n_tensors = 2 + int(residual) + int(keep_sum)
+    io_bytes = 4 * y.numel() * n_tensors + 8 * c
+    bound_ms = 1e3 * io_bytes / H100_BYTES_PER_S
+    ms = time_ms(lambda: snake_fused(y, bias, alpha, res, keep_sum=keep_sum))
+    plain_ms = time_ms(lambda: snake_fused_plain(y, bias, alpha, res, keep_sum=keep_sum), reps=5)
+    res_.update(ms=ms, bound_ms=bound_ms, bound_by="bytes", share_of_bound=bound_ms / ms,
+                gbytes_per_s=io_bytes / ms * 1e-6, plain_ms=plain_ms, library_ms=None,
+                call_ms=call_ms(lambda: snake_fused(y, bias, alpha, res, keep_sum=keep_sum)))
+    print(f"kernel snake (b, c, t)=({b}, {c}, {t}) residual={residual} keep_sum={keep_sum}: "
+          f"{ms:.4f} ms ({res_['gbytes_per_s']:.0f} GB/s, {100 * bound_ms / ms:.1f}% of the "
+          f"bound {bound_ms:.4f} ms), eager chain {plain_ms:.4f} ms")
+    return res_
+
+
+def snake_phase(gen):
+    """The fused snake (`ops/snake.py`): the kernel bit for bit with the
+    eager chain at every encoder and decoder width of 10 s of 44.1 kHz audio
+    at b = 8 (the training step's encode) in all four forms (residual or
+    not, the sum kept or not), at the edge rows (t % 4 != 0, rows at an odd
+    offset, |alpha x| past 1e5, alphas near 0, negative alphas), timed at
+    the first stage's shape; then the full-width codec's fused route against
+    its plain composition (`forward_plain`): latents, codes and waveform bit
+    for bit, 29 launches an encode and 29 a decode, the b = 8 encode's time
+    and peak memory by each route; the matmul schedule's fused route against
+    its own plain composition, bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from vampnet_tpu_torch.codec import LAC, CodecConfig
+    from vampnet_tpu_torch.codec.layers import no_tf32
+    from vampnet_tpu_torch.ops.snake import snake_fused
+
+    cfg = CodecConfig()
+    hop = cfg.hop_length
+    frames = math.ceil(10 * cfg.sample_rate / hop)  # 862
+    t_full = frames * hop  # 441,344
+    out = {"widths": {}, "edges": {}, "timed": {}}
+    # the encoder's residual units at 64, 128, 256, 512 channels (lengths t,
+    # t / 2, t / 8, t / 64) and its last snake at 1,024 x t / 512; the
+    # decoder's first snake at 1,536 x t / 512 and its units at 768, 384,
+    # 192, 96 channels (t / 64, t / 8, t / 2, t)
+    widths = [(cfg.encoder_dim * 2 ** i, t_full // s) for i, s in enumerate((1, 2, 8, 64, 512))]
+    widths += [(cfg.decoder_dim // 2 ** i, t_full // s)
+               for i, s in enumerate((512, 64, 8, 2, 1))]
+    for c, t in widths:
+        for residual in (False, True):
+            for keep_sum in (False, True):
+                key = f"b{TRAIN_BATCH}_c{c}_t{t}_res{int(residual)}_sum{int(keep_sum)}"
+                out["widths"][key] = check_snake(TRAIN_BATCH, c, t, gen, residual, keep_sum)
+        torch.cuda.empty_cache()
+    edges = {
+        **{f"t{t}": dict(b=3, c=5, t=t) for t in (1, 2, 3, 5, 6, 7, 862, 4095, 4097, 16387)},
+        "offset1": dict(b=2, c=7, t=1001, offset=1),
+        "offset2_t862": dict(b=2, c=7, t=862, offset=2),
+        "offset4": dict(b=2, c=7, t=1001, offset=4),
+        "alpha_x_past_1e5": dict(b=2, c=16, t=4099, scale=3e5),
+        "alpha_1e5": dict(b=2, c=4, t=4099, alpha=torch.full((1,), 1e5, device="cuda")),
+        "alpha_0": dict(b=2, c=4, t=1003, alpha=torch.zeros(1, device="cuda")),
+        "alpha_1e-12": dict(b=2, c=4, t=1003, alpha=torch.full((1,), 1e-12, device="cuda")),
+        "alpha_-1e-9": dict(b=2, c=4, t=1003, alpha=torch.full((1,), -1e-9, device="cuda")),
+        "alpha_near_0": dict(b=2, c=64, t=1003,
+                             alpha=1e-7 * torch.randn(64, generator=gen, device="cuda")),
+        "alpha_negative": dict(b=2, c=64, t=4101,
+                               alpha=-0.5 - torch.rand(64, generator=gen, device="cuda")),
+    }
+    for name, kw in edges.items():
+        for residual in (False, True):
+            for keep_sum in (False, True):
+                out["edges"][f"{name}_res{int(residual)}_sum{int(keep_sum)}"] = check_snake(
+                    gen=gen, residual=residual, keep_sum=keep_sum, **kw)
+    print(f"snake: bit for bit at {len(out['widths'])} width cases and {len(out['edges'])} "
+          f"edge cases")
+    # timed at the encoder's first stage: the plain snake after conv_in and
+    # a block conv, and a residual unit's end that keeps the sum
+    c0 = cfg.encoder_dim
+    out["timed"]["stage0"] = check_snake(TRAIN_BATCH, c0, t_full, gen, timed=True)
+    out["timed"]["stage0_res_sum"] = check_snake(TRAIN_BATCH, c0, t_full, gen, residual=True,
+                                                 keep_sum=True, timed=True)
+    torch.cuda.empty_cache()
+
+    # the full-width codec: the fused route against the plain composition
+    codec = LAC(cfg, device="cuda")
+    codec.load_state_dict(codec_weights(codec, gen))
+    codec.requires_grad_(False)
+    audio = train_audio(cfg.sample_rate, hop, 10, TRAIN_BATCH)  # (8, t, 1)
+    x = audio.transpose(1, 2)
+    route = {}
+    with torch.no_grad(), no_tf32():
+        n0 = snake_fused.launches
+        z_fused = codec.encoder(x)
+        route["launches_encode"] = snake_fused.launches - n0
+        z_plain = codec.encoder.forward_plain(x)
+        if not same_bits(z_fused, z_plain):
+            raise AssertionError("the fused encode's latents differ from the plain composition's")
+        codes = codec.quantizer(z_fused)[1]
+        if not torch.equal(codes, codec.quantizer(z_plain)[1]):
+            raise AssertionError("the fused encode's codes differ")
+        for rows in (2, TRAIN_BATCH):
+            z_q = codec.quantizer.from_codes(codes[:rows])
+            n0 = snake_fused.launches
+            wav = codec.decoder(z_q)
+            route[f"launches_decode_b{rows}"] = snake_fused.launches - n0
+            if not same_bits(wav, codec.decoder.forward_plain(z_q)):
+                raise AssertionError(f"the fused decode's waveform differs (b={rows})")
+        del z_q, wav
+        # LAC.encode and decode_codes, the public calls, count the same
+        n0 = snake_fused.launches
+        codec.decode_codes(codec.encode(audio[:2]))
+        route["launches_public_encode_decode"] = snake_fused.launches - n0
+    want = {"launches_encode": 29, "launches_decode_b2": 29,
+            f"launches_decode_b{TRAIN_BATCH}": 29, "launches_public_encode_decode": 58}
+    if {k: route[k] for k in want} != want:
+        raise AssertionError(f"snake launches {route}, expected {want}")
+    torch.cuda.synchronize()
+    with torch.no_grad(), no_tf32():
+        for name, fn in (("fused", codec.encoder.forward_fused),
+                         ("plain", codec.encoder.forward_plain)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn(x)
+            torch.cuda.synchronize()
+            route[f"encode_peak_gb_{name}"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            route[f"encode_ms_{name}"] = time_ms(lambda fn=fn: fn(x), reps=5)
+    print(f"snake: b={TRAIN_BATCH} x 10 s encode fused {route['encode_ms_fused']:.2f} ms, "
+          f"peak {route['encode_peak_gb_fused']:.2f} GB; plain {route['encode_ms_plain']:.2f} ms, "
+          f"peak {route['encode_peak_gb_plain']:.2f} GB")
+    out["route"] = route
+    # the matmul schedule (conv_impl="matmul") takes the fused route too: its
+    # convs without their bias, then the kernel; held to its own plain
+    # composition on the same weights
+    mm = LAC(dataclasses.replace(cfg, conv_impl="matmul"), device="cuda")
+    mm.load_state_dict(codec.state_dict())
+    mm.requires_grad_(False)
+    x2 = x[:2]
+    with torch.no_grad(), no_tf32():
+        n0 = snake_fused.launches
+        z_mm = mm.encoder(x2)
+        route["launches_encode_matmul"] = snake_fused.launches - n0
+        if not same_bits(z_mm, mm.encoder.forward_plain(x2)):
+            raise AssertionError("the matmul schedule's fused encode differs from its plain one")
+        z_q = mm.quantizer.from_codes(mm.quantizer(z_mm)[1])
+        n0 = snake_fused.launches
+        wav = mm.decoder(z_q)
+        route["launches_decode_matmul"] = snake_fused.launches - n0
+        if not same_bits(wav, mm.decoder.forward_plain(z_q)):
+            raise AssertionError("the matmul schedule's fused decode differs from its plain one")
+    if (route["launches_encode_matmul"], route["launches_decode_matmul"]) != (29, 29):
+        raise AssertionError(f"the matmul schedule's snake launches {route}, expected 29 and 29")
+    print("snake: the matmul schedule's fused route bit for bit with its plain composition "
+          "(b=2 x 10 s latents and waveform)")
+    out["route"] = route
+    del codec, mm, audio, x, x2, z_fused, z_plain, z_mm, z_q, wav
+    torch.cuda.empty_cache()
+    return out
 
 
 def sampler_agreement(label, keys, logits, temp, top_p=None, **kw):
@@ -1264,6 +1483,7 @@ def train_full_width(codec, codebooks, gen):
         flash_attention_with_bias,
     )
     from vampnet_tpu_torch.ops.relative_bias import relative_bias_grad
+    from vampnet_tpu_torch.ops.snake import snake_fused
     from vampnet_tpu_torch.train import TrainState, make_optimizer, make_train_step
 
     cfg = LMConfig.coarse(dropout=0.1)
@@ -1281,10 +1501,11 @@ def train_full_width(codec, codebooks, gen):
     dgen = torch.Generator(device="cuda")
     dgen.manual_seed(SEED)
     counters = {"attention_fwd_lse": attention_fwd_lse, "attention_bwd_fused": attention_bwd_fused,
-                "relative_bias_grad": relative_bias_grad}
-    # one bias (layer 0's table) for the 20 layers: its gradient once a step
+                "relative_bias_grad": relative_bias_grad, "snake_fused": snake_fused}
+    # one bias (layer 0's table) for the 20 layers: its gradient once a step;
+    # the frozen codec's encode: one snake kernel for each of its 29 snakes
     want = {"attention_fwd_lse": cfg.n_layers, "attention_bwd_fused": cfg.n_layers,
-            "relative_bias_grad": 1}
+            "relative_bias_grad": 1, "snake_fused": 29}
     for c in (*counters.values(), flash_attention_with_bias):
         c.launches = 0
     walls, peaks = [], []
@@ -1329,10 +1550,11 @@ def train_full_width(codec, codebooks, gen):
                   launches_per_step={n: launches[n] // TRAIN_STEPS for n in launches})
     print("train: " + json.dumps(result))
     # what is left of autograd's sort-based index backward (the embedding's
-    # gather) beside the bucket table's gradient kernel
+    # gather) beside the bucket table's gradient kernel, and the codec's
+    # fused snake
     hits = {}
     profile("train step", lambda: step(state, cbs, audio, dgen),
-            totals=("indexing_backward", "relative_bias"), hits=hits)
+            totals=("indexing_backward", "relative_bias", "snake_kernel"), hits=hits)
     result["profiled_ms_launches"] = hits
     return result, launches
 
@@ -4368,14 +4590,15 @@ def distributed_training_phase(codec, codebooks, gen, card):
 
 
 def main(argv=None) -> int:
-    """Every phase; with `--only magnet`, the build and MAGNeT's phases."""
+    """Every phase; with `--only magnet` or `--only snake`, the build and
+    MAGNeT's phases, or the fused snake's."""
     import argparse
 
     import numpy as np
     import torch
 
     p = argparse.ArgumentParser(description="the port's checks on the card")
-    p.add_argument("--only", choices=("magnet",), default=None)
+    p.add_argument("--only", choices=("magnet", "snake"), default=None)
     only = p.parse_args(argv).only
 
     if not torch.cuda.is_available():
@@ -4396,6 +4619,7 @@ def main(argv=None) -> int:
     from vampnet_tpu_torch.ops.int8_matmul import w8a8_matmul
     from vampnet_tpu_torch.ops.relative_bias import relative_bias_grad
     from vampnet_tpu_torch.ops.sampler_kernel import fused_sample_from_logits
+    from vampnet_tpu_torch.ops.snake import snake_fused
 
     t_start = time.perf_counter()
     card = card_line()
@@ -4426,6 +4650,13 @@ def main(argv=None) -> int:
     if len(bwd_regs) != 8:
         raise AssertionError(f"expected 8 attention backward instances, found {sorted(bwd_regs)}")
 
+    if only == "snake":
+        snake = snake_phase(torch.Generator(device="cuda").manual_seed(SEED + 24))
+        print("snake summary: " + json.dumps(snake))
+        print(f"total wall: {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "only": only}))
+        return 0
     if only == "magnet":
         magnet_kernels = magnet_kernels_phase(
             torch.Generator(device="cuda").manual_seed(SEED + 23))
@@ -4543,6 +4774,9 @@ def main(argv=None) -> int:
     }
     for shape, r in rel_bias.items():
         print(f"kernel relative_bias_grad[{shape}]: " + json.dumps(r))
+    # the LAC codec's fused snake (its own generator: the later phases draw
+    # what they drew before it)
+    snake = snake_phase(torch.Generator(device="cuda").manual_seed(SEED + 24))
     # the training kernels at the other head dims and with the serving LMs'
     # bf16 bias
     for label, kw in (("d32", dict(h=d_model // 32, d=32)),
@@ -4573,14 +4807,18 @@ def main(argv=None) -> int:
     want = {"attention_fwd": n_layer_calls, "sampler": 12 + 2, "w8a8_matmul": 0,
             "fused_geglu_ffn": 0}
     bias_grads = relative_bias_grad.launches
+    # the fp32 codec's encode and its decode of the two rows: 29 snake
+    # kernels each
     served, base_launches = serve("bf16", lambda i: iface.vamp_e2e(sig, seed=SEED + i, **kw),
-                                  REQUESTS, counters, want, n_samples)
+                                  REQUESTS, dict(counters, snake_fused=snake_fused),
+                                  dict(want, snake_fused=2 * 29), n_samples)
     # the serving bias is built under no_grad: no table gradient
     if relative_bias_grad.launches != bias_grads:
         raise AssertionError(f"{REQUESTS} requests launched the relative-bias gradient "
                              f"{relative_bias_grad.launches - bias_grads} times")
     launches = {"attention_fwd": base_launches["attention_fwd"],
-                "sampler": base_launches["sampler"]}
+                "sampler": base_launches["sampler"],
+                "snake_fused_requests": base_launches["snake_fused"]}
 
     # ---- 5. full-width training steps ----
     train, train_launches = train_full_width(iface.codec, iface.codebooks, gen)
@@ -4592,8 +4830,11 @@ def main(argv=None) -> int:
 
     # ---- 7. where a request's time goes ----
     # nvjet: cuBLAS's GEMMs (the LMs' projections and classifiers)
+    # snake_kernel: the codec's fused snake, which the benchmark's codec
+    # spans miss (a ctypes launch)
+    request_hits = {}
     busy_bf16, launches_bf16 = profile("request", lambda: iface.vamp_e2e(sig, seed=99, **kw),
-                        totals=("nvjet", "sampler_kernel"))
+                        totals=("nvjet", "sampler_kernel", "snake_kernel"), hits=request_hits)
 
     # ---- 8. long-context requests through the staged API ----
     # the Gradio app's sequence with a 20 s coarse chunk on a 20 s signal
@@ -4819,6 +5060,20 @@ def main(argv=None) -> int:
               "none: XLA's scatter-add of the bias gather's gradient, "
               "vampnet_tpu/modules/transformer.py:119-136", rel_bias),
         launches_per_train_step=1, launches_per_request=0))
+    kernels.append(dict(
+        name="snake_fused", route="cuda", source="vampnet_tpu_torch/csrc/snake.cu",
+        replaces="none: XLA fuses the snake, vampnet_tpu/modules/activations.py:27",
+        **{k: snake["timed"]["stage0"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "share_of_bound", "library_ms")},
+        shape=f"({TRAIN_BATCH}, 64, 441344), no residual", res_sum=snake["timed"]["stage0_res_sum"],
+        launches_per_encode=snake["route"]["launches_encode"],
+        launches_per_decode=snake["route"]["launches_decode_b2"],
+        launches_per_train_step=launches["snake_fused"] // TRAIN_STEPS,
+        launches_per_request=launches["snake_fused_requests"] // REQUESTS,
+        profiled_ms_launches_train_step=train["profiled_ms_launches"]["snake_kernel"],
+        profiled_ms_launches_request=request_hits["snake_kernel"],
+        profiled_request_busy_ms=busy_bf16,
+        encode=snake["route"]))
     kernels.append(dict(
         entry("w8a8_matmul", "vampnet_tpu_torch/csrc/int8_matmul.cu",
               "vampnet_tpu/ops/int8_matmul.py:36", results["w8a8_matmul"], main="coarse_w_1"),

@@ -26,17 +26,23 @@ The parameters are the same for both schedules; only the order of the
 arithmetic changes. fp32 runs with TF32 off for cuDNN and cuBLAS alike
 (`no_tf32` below): the encoder decides the discrete codes, and TF32 can flip
 a nearest-neighbour choice.
+
+For the LAC codec's fused route (`codec/model.py`), each conv also runs
+without its bias (`forward_nobias`), and `Snake1d.fused` adds the bias, and
+the residual where there is one, in the snake's own pass (`ops/snake.py`).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..modules.activations import snake
+from ..ops.snake import snake_fused
 
 IMPLS = ("xla", "matmul")
 
@@ -144,6 +150,16 @@ class Snake1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return snake(x, self.alpha[None, :, None].to(x.dtype))
 
+    def fused(self, pre: list, keep_sum: bool = False):
+        """The snake of x = res + (y + bias) in one pass, for the pending
+        pre = [y, bias, res or None]: a conv's output without its bias, that
+        bias, and the residual. Returns s, or (x, s) with `keep_sum`. Empties
+        `pre`, so that y and res are freed once the pass has read them,
+        whoever else holds the list."""
+        y, bias, res = pre
+        pre.clear()
+        return snake_fused(y, bias.to(y.dtype), self.alpha.to(y.dtype), res, keep_sum)
+
 
 class WNConv1d(nn.Module):
     """weight_norm(Conv1d): v (out, in, k), g (out,), bias (out,); computes in
@@ -161,14 +177,21 @@ class WNConv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv(x, self.bias.to(self.dtype))
+
+    def forward_nobias(self, x: torch.Tensor) -> torch.Tensor:
+        """`forward` without the bias (the fused route adds it)."""
+        return self._conv(x, None)
+
+    def _conv(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         dt = self.dtype
         w = _weight_norm(self.v, self.g).to(dt)
         k = w.shape[-1]
         if self.impl == "matmul" and (self.stride == 1 or k == 2 * self.stride):
             y = conv1d_matmul(x.to(dt), w, self.stride, self.padding, self.dilation)
-            return y + self.bias.to(dt)[:, None]
-        return F.conv1d(x.to(dt), w, self.bias.to(dt), stride=self.stride,
-                        padding=self.padding, dilation=self.dilation)
+            return y if bias is None else y + bias[:, None]
+        return F.conv1d(x.to(dt), w, bias, stride=self.stride, padding=self.padding,
+                        dilation=self.dilation)
 
 
 class WNConvTranspose1d(nn.Module):
@@ -188,10 +211,16 @@ class WNConvTranspose1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv(x, self.bias.to(self.dtype))
+
+    def forward_nobias(self, x: torch.Tensor) -> torch.Tensor:
+        """`forward` without the bias (the fused route adds it)."""
+        return self._conv(x, None)
+
+    def _conv(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         dt = self.dtype
         w = _weight_norm(self.v, self.g).to(dt)
         if self.impl == "matmul" and w.shape[-1] == 2 * self.stride:
             y = conv_transpose1d_matmul(x.to(dt), w, self.stride, self.padding)
-            return y + self.bias.to(dt)[:, None]
-        return F.conv_transpose1d(x.to(dt), w, self.bias.to(dt), stride=self.stride,
-                                  padding=self.padding)
+            return y if bias is None else y + bias[:, None]
+        return F.conv_transpose1d(x.to(dt), w, bias, stride=self.stride, padding=self.padding)

@@ -71,6 +71,9 @@ _SIGNATURES = {
     # dbias, dbias_is_bf16, offset buckets (int32), partial (scratch), out,
     # out_is_bf16, h, t_q, t_k, num_buckets, device, stream
     "vampnet_relative_bias_grad": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # y, bias, alpha, res (or null), sum (or null), out, rows (b * channels),
+    # channels, t, device, stream
+    "vampnet_snake": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
