@@ -4027,7 +4027,7 @@ def multi_device_phase(codec_cfg, gen, card):
         must fail it."""
         lm, zin, cbs = served.coarse, z_check, cb_check
         bias = position_bias_from_params(lm, zin.shape[-1])
-        place = served._placement(lm)
+        place = served.placement.of(lm)
         with torch.inference_mode():
             want = lm.forward_codes(zin, cbs, position_bias=bias)
             got = place.forward_codes(zin, cbs, bias)
@@ -4127,8 +4127,8 @@ def multi_device_phase(codec_cfg, gen, card):
     if share > SOLO_BATCHED_BOUND:
         raise AssertionError(f"pipeline: {share} of tokens differ from the unplaced run")
     res.update(token_share_differing=share,
-               coarse_slice=iface._placements["coarse"].mesh.size,
-               c2f_slice=iface._placements["c2f"].mesh.size)
+               coarse_slice=iface.placement.lms["coarse"].mesh.size,
+               c2f_slice=iface.placement.lms["c2f"].mesh.size)
     summary["pipeline"] = res
 
     # ---- 16d: sequence parallel, the chunk-free coarse vamp on 40 s ----
@@ -4143,13 +4143,13 @@ def multi_device_phase(codec_cfg, gen, card):
                        lambda: iface.coarse_vamp(codes40, mask40, seed=SEED, _sampling_steps=12,
                                                  **det),
                        {"attention_fwd_lse": 12 * coarse_cfg.n_layers * n * n, "sampler": 12})
-        # the same whole-sequence generate on the non-ring LM (K9 over t_pad)
-        lm = iface._coarse_windowed
+        # the same whole-sequence generate on the coarse LM unplaced (K9 over t_pad)
+        lm = iface.coarse
         cbs = iface.codebooks[:n_coarse]
         bias = position_bias_from_params(lm, t_pad)
         zp = torch.nn.functional.pad(codes40[:, :n_coarse], (0, t_pad - t40))
         mp = torch.nn.functional.pad(mask40[:, :n_coarse], (0, t_pad - t40), value=1)
-        place = iface._placement(iface.coarse)
+        place = iface.placement.of(iface.coarse)
         with torch.inference_mode():
             whole = generate(lambda zm: lm.forward_codes(zm, cbs, position_bias=bias),
                              torch.where(mp.bool(), lm.mask_token, zp), mp, lm.mask_token,

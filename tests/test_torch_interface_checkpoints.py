@@ -146,6 +146,38 @@ def test_reload_short_circuits_and_swaps(files, tmp_path):
     assert out.samples.shape == (2, 1, 150 * 32) and np.isfinite(out.samples).all()
 
 
+@pytest.mark.parametrize("mode,swap", [("tp", "coarse"), ("sp", "coarse"), ("sp", "c2f"),
+                                       ("pipeline", "c2f")])
+def test_reload_under_a_placement(files, tmp_path, mode, swap):
+    """A swapped LM arrives unplaced: under tp the other LM keeps its
+    placement and the mesh stays; an sp placement that loses the coarse LM,
+    or a pipeline that loses a stage, leaves the Interface unplaced; under
+    sp a swapped c2f LM (never placed there) leaves the sp placement as it
+    was."""
+    root, _ = files
+    iface = Interface.from_checkpoints(**_ckpts(root), device="cpu", **CHUNKS)
+    place = {"tp": lambda: iface.shard(tp=1, devices=["cpu"] * 2),
+             "sp": lambda: iface.shard(sp=2, devices=["cpu"] * 2),
+             "pipeline": lambda: iface.shard_pipeline(devices=["cpu"] * 2)}[mode]
+    place()
+    before = iface.placement
+    cfg = configs("float32")[2][swap][0]
+    jckpt.save_lm(tmp_path / "other.vtpu", cfg, lm_params_np(cfg, 78))
+    iface.reload(**{"coarse_ckpt" if swap == "coarse" else "c2f_ckpt": tmp_path / "other.vtpu"})
+    after = iface.placement
+    assert after.of(getattr(iface, swap)) is None
+    if mode == "tp":
+        assert after.mesh is before.mesh and after.lms == {"c2f": before.lms["c2f"]}
+    elif mode == "sp" and swap == "c2f":
+        assert after.sp == 2 and after.lms == before.lms
+    else:
+        assert (after.lms, after.mesh, after.sp, after.codec_decode) == ({}, None, 1, None)
+    samples, sr = _signal()
+    codes = iface.encode(AudioSignal(samples, sr))
+    out = iface.vamp(codes, torch.ones_like(codes), seed=0, _sampling_steps=2)
+    assert out.shape == codes.shape
+
+
 def test_models_directory(files, tmp_path, monkeypatch):
     root, trees = files
     _hub_offline(monkeypatch)

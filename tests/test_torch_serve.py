@@ -323,7 +323,7 @@ def test_engine_data_parallel_is_not_ported(interface):
             VampEngine(interface, data_parallel=True)
     finally:
         interface.to(interface.device)  # drops the placement
-    assert interface._sp_mesh is None and interface.coarse.config.attention_impl != "ring"
+    assert interface.placement.sp == 1 and interface.placement.of(interface.coarse) is None
 
 
 # ---------------- OSC ----------------

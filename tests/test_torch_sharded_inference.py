@@ -118,7 +118,7 @@ def test_sharded_vamp_matches_single_device(params, greedy_refs):
     mask = iface.build_mask(z, periodic_prompt=5, upper_codebook_mask=1, seed=0)
     ref = iface.coarse_vamp(z, mask, seed=3, _sampling_steps=3)
     iface.shard(mesh=make_mesh(tp=2, devices=CPU8))  # 4 dp x 2 tp
-    place = iface._placement(iface.coarse)
+    place = iface.placement.of(iface.coarse)
     assert place.dp == 4 and isinstance(place.groups[0][1], TensorParallelStack)
     out = iface.coarse_vamp(z, mask, seed=3, _sampling_steps=3)
     assert _agree(out, ref) > BOUND
@@ -133,7 +133,7 @@ def test_sharded_params_actually_distributed(params):
     inputs."""
     iface = _port(params)
     iface.shard(mesh=make_mesh(tp=2, devices=CPU8))
-    stack = iface._placement(iface.coarse).groups[0][1]
+    stack = iface.placement.of(iface.coarse).groups[0][1]
     assert stack.devices == [torch.device("cpu")] * 2 and len(stack.shards) == 2
     full = iface.coarse.transformer.layers_0
     w1 = full.feed_forward.w_1.weight
@@ -153,7 +153,7 @@ def test_engine_data_parallel_serving(params, engines):
     solo_iface = _port(params)
     iface.shard(tp=1, devices=CPU8)  # 8-way dp
     rows = []
-    place = iface._placement(iface.coarse)
+    place = iface.placement.of(iface.coarse)
     real = place.forward_codes
     place.forward_codes = lambda zm, *a: rows.append(zm.shape[0]) or real(zm, *a)
     eng = engines(iface, max_wait_ms=200.0, max_batch=8, data_parallel=True)
@@ -182,11 +182,11 @@ def test_pipeline_placement_slices_and_parity(params, greedy_refs):
     ref = _two_stage(iface, z, mask)
     ref_audio = iface.decode(ref).samples
     iface.shard_pipeline(n_coarse_devices=4, devices=CPU8)
-    a, b = iface._placements["coarse"], iface._placements["c2f"]
+    a, b = iface.placement.lms["coarse"], iface.placement.lms["c2f"]
     assert a.lm is iface.coarse and b.lm is iface.c2f
     # slice A is mesh positions 0-3, slice B positions 4-7: dp 4 each
     assert a.mesh.size == 4 and b.mesh.size == 4 and a.dp == b.dp == 4
-    assert iface._mesh is a.mesh and iface._pipeline
+    assert iface.placement.mesh is a.mesh and iface.placement.pipeline
     out = _two_stage(iface, z, mask)
     assert _agree(out, ref) > BOUND
     np.testing.assert_allclose(iface.decode(out).samples, ref_audio, atol=1e-4)
@@ -197,8 +197,8 @@ def test_pipeline_placement_slices_and_parity(params, greedy_refs):
 def test_pipeline_default_split_and_e2e_guard(params):
     iface = _port(params)
     iface.shard_pipeline(devices=CPU8)  # about 3:1 of 8
-    assert iface._placements["coarse"].mesh.size == 6
-    assert iface._placements["c2f"].mesh.size == 2
+    assert iface.placement.lms["coarse"].mesh.size == 6
+    assert iface.placement.lms["c2f"].mesh.size == 2
     from vampnet_tpu_torch.audio import AudioSignal
 
     sig = AudioSignal(np.zeros((1, 1, 3200), np.float32), 16000)
@@ -261,8 +261,8 @@ def test_quantized_interface_shards(params):
     z = _codes()
     mask = iface.build_mask(z, periodic_prompt=5, upper_codebook_mask=1, seed=0)
     iface.quantize().shard(mesh=make_mesh(tp=2, devices=CPU8))
-    first, lay = iface._placement(iface.coarse).groups[0][1].shards[0][0], \
-        iface._placement(iface.coarse).groups[0][1].shards[1][0]
+    first, lay = iface.placement.of(iface.coarse).groups[0][1].shards[0][0], \
+        iface.placement.of(iface.coarse).groups[0][1].shards[1][0]
     assert lay.feed_forward.w_1.w_q.dtype == torch.int8
     assert lay.feed_forward.w_1.w_q.shape == (128, 64) and lay.feed_forward.w_1.w_scale.shape == (128,)
     # the row site stays whole, on the group's first shard only
@@ -280,9 +280,9 @@ def test_quantize_under_pipeline_unwinds_placement(params):
     iface.shard_pipeline(n_coarse_devices=4, devices=CPU8)
     _two_stage(iface, z, mask)
     iface.quantize()
-    assert iface._pipeline is False and iface._mesh is None
-    assert iface._codec_decode is None and iface._placements == {}
-    assert iface._placement(iface.coarse) is None and iface._placement(iface.c2f) is None
+    assert iface.placement.pipeline is False and iface.placement.mesh is None
+    assert iface.placement.codec_decode is None and iface.placement.lms == {}
+    assert iface.placement.of(iface.coarse) is None and iface.placement.of(iface.c2f) is None
     out = _two_stage(iface, z, mask)
     assert iface.decode(out).samples.shape[0] == 1
     with pytest.raises(AssertionError, match="data_parallel"):
@@ -320,7 +320,7 @@ def test_sp_chunkfree_vamp_matches_unsharded_whole_seq(params, jiface):
                         torch.from_numpy(mask), 64, torch.Generator().manual_seed(0),
                         sampling_steps=4, **DET).numpy()
     iface.shard(sp=8, devices=CPU8)
-    assert iface.coarse.config.attention_impl == "ring" and iface.sp_pad_len(t) == t
+    assert iface.sp_pad_len(t) == t
     out = iface.coarse_vamp(codes, mask, seed=0, _sampling_steps=4, **DET).numpy()
     assert out.shape == codes.shape
     for ref in (jref, tref):
@@ -348,19 +348,40 @@ def test_sp_pad_len_and_unchunked_refusals(params):
         _port(params).shard(mesh=make_mesh(devices=["meta"] * 2))
 
 
-def test_shard_sp_reentry_keeps_nonring_twin(params):
+def test_shard_sp_reentry_places_the_coarse_lm_itself(params, monkeypatch):
+    """shard(sp=) places the coarse LM itself: a repeated shard(sp=) keeps
+    `iface.coarse` the same object on the same storage and builds no
+    VampNetLM, and leaving sp unplaces it."""
     iface = _port(params)
+    coarse = iface.coarse
+    w = "transformer.layers_0.self_attn.w_qs.weight"
+    ptr = coarse.state_dict()[w].data_ptr()
+    built = []
+    real_init = VampNetLM.__init__
+    monkeypatch.setattr(VampNetLM, "__init__",
+                        lambda self, *a, **kw: built.append(a) or real_init(self, *a, **kw))
     iface.shard(sp=8, devices=CPU8)
     iface.shard(sp=8, devices=CPU8)  # again (a reconfiguration)
-    assert iface.coarse.config.attention_impl == "ring"
-    assert iface._coarse_windowed.config.attention_impl != "ring"
-    # the twin shares the ring LM's weights
-    w = "transformer.layers_0.self_attn.w_qs.weight"
-    assert iface.coarse.state_dict()[w].data_ptr() == \
-        iface._coarse_windowed.state_dict()[w].data_ptr()
-    iface.shard(tp=1, devices=CPU8)  # leaving sp: the regular LM again
+    assert built == []
+    assert iface.coarse is coarse and iface.coarse.state_dict()[w].data_ptr() == ptr
     assert iface.coarse.config.attention_impl != "ring"
-    assert iface._sp_mesh is None and iface._coarse_windowed is None
+    assert iface.placement.sp == 8 and iface.placement.of(coarse).lm is coarse
+    iface.shard(tp=1, devices=CPU8)  # leaving sp: the LM on the dp mesh
+    assert iface.coarse is coarse and iface.placement.sp == 1
+    iface.to(iface.device)
+    assert iface.coarse is coarse and iface.placement.of(coarse) is None
+
+
+def test_sp_windowed_vamp_matches_unsharded(params):
+    """Under shard(sp=8) the windowed coarse_vamp (chunked=True) runs the
+    coarse LM unplaced: the unsharded windowed tokens, bit for bit."""
+    iface, ref = _port(params), _port(params)
+    z = _codes()
+    mask = iface.build_mask(z, periodic_prompt=5, upper_codebook_mask=1, seed=0)
+    want = ref.coarse_vamp(z, mask, seed=3, _sampling_steps=3).numpy()
+    iface.shard(sp=8, devices=CPU8)
+    got = iface.coarse_vamp(z, mask, seed=3, _sampling_steps=3, chunked=True).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_sp_vamp_public_api_end_to_end(params):
@@ -431,7 +452,7 @@ def test_sp_engine_rejects_data_parallel(params):
     iface = _port(params)
     iface.shard(tp=1, devices=CPU8)  # leaves a dp mesh behind
     iface.shard(sp=8, devices=CPU8)
-    assert iface._mesh is None
+    assert iface.placement.mesh is None
     with pytest.raises(AssertionError, match="data_parallel"):
         VampEngine(iface, data_parallel=True)
 
@@ -532,7 +553,7 @@ def test_tp_int8_keeps_the_row_scale(params):
         assert torch.equal(first.self_attn.fc.w_q, whole)
         assert other.self_attn.fc is None and other.feed_forward.w_2 is None
     iface.shard(mesh=make_mesh(tp=2, devices=["cpu"] * 2))
-    assert not iface._placement(lm).groups[0][1].row_parallel
+    assert not iface.placement.of(lm).groups[0][1].row_parallel
 
 
 def test_tp_replica_on_another_device_leaves_out_the_layers(params):

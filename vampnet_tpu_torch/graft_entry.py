@@ -130,7 +130,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
         codec_cfg, codec.state_dict(), lm_cfg, lm_params, c2f_cfg, c2f.state_dict(),
         coarse_chunk_size_s=0.2, coarse2fine_chunk_size_s=0.1, device=device)
     iface.shard_pipeline(n_coarse_devices=max(1, n_devices // 2), devices=positions)
-    a, b_ = iface._placements["coarse"].mesh, iface._placements["c2f"].mesh
+    a, b_ = iface.placement.lms["coarse"].mesh, iface.placement.lms["c2f"].mesh
     # disjoint slices of the positions, together all of them
     assert a.size + b_.size == n_devices and a.size == max(1, n_devices // 2)
     z = torch.zeros((1, 4, 32), dtype=torch.int64, device=device)
@@ -147,7 +147,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     iface_sp = Interface.from_modules(codec_cfg, codec.state_dict(), lm_cfg, lm_params,
                                       coarse_chunk_size_s=0.2, device=device)
     iface_sp.shard(sp=n_devices, devices=positions)
-    assert iface_sp.coarse.config.attention_impl == "ring"
+    assert iface_sp.placement.sp == n_devices
     z_long = torch.zeros((1, 4, 32 * n_devices), dtype=torch.int64, device=device)
     out_sp = iface_sp.coarse_vamp(z_long, torch.ones_like(z_long), seed=0, _sampling_steps=2)
     assert tuple(out_sp.shape) == tuple(z_long.shape)

@@ -41,10 +41,10 @@ sharded path then runs on one device, every kernel at its sharded shapes.
     (`parallel/placement.py`). The logits of every forward meet on the
     mesh's first device, where the MaskGIT loop samples them (K10) as it
     does unsharded.
-  * `shard(sp=)`: the coarse LM on a ring-attention twin over an ("sp",)
-    mesh, and `coarse_vamp` generates the whole sequence in one pass
-    (`chunked=False`, the default there), padded to `sp_pad_len`; the c2f
-    LM keeps its windows.
+  * `shard(sp=)`: the coarse LM's layers as a ring-attention `RingStack`
+    over an ("sp",) mesh, and `coarse_vamp` generates the whole sequence in
+    one pass (`chunked=False`, the default there), padded to `sp_pad_len`;
+    the windowed paths and the c2f LM run unplaced.
   * `shard_pipeline()`: coarse on one slice of the devices, c2f and the
     decode codec on the rest; each stage runs on its slice's first device
     and hands its codes back to the Interface's device.
@@ -70,6 +70,7 @@ from .codec import LAC, CodecConfig
 from .modules import LMConfig, VampNetLM
 from .modules.quantize import quantize_lm_state_dict
 from .modules.transformer import position_bias_from_params
+from .parallel.placement import InterfacePlacement, Placement
 from .sampling.generate import generate
 from .sampling.sample import fold_in_rows
 from .util import resolve_device, to_device
@@ -147,16 +148,8 @@ class Interface:
         self.codec_path: Optional[Path] = None
         self.coarse_path: Optional[Path] = None
         self.c2f_path: Optional[Path] = None
-        # multi-device state (`shard`, `shard_pipeline`): the ("dp", "tp")
-        # mesh (the coarse slice's under a pipeline), the sp mesh, the
-        # placements by LM, the non-ring coarse twin under sp, and the codec
-        # on the c2f slice
-        self._mesh = None
-        self._sp_mesh = None
-        self._pipeline = False
-        self._placements: Dict[str, Any] = {}
-        self._coarse_windowed: Optional[VampNetLM] = None
-        self._codec_decode: Optional[LAC] = None
+        # where the models run (`shard`, `shard_pipeline`), set whole
+        self.placement = InterfacePlacement()
 
     @classmethod
     def from_checkpoints(
@@ -244,21 +237,25 @@ class Interface:
         config, so after `quantize()` it is bf16 again, as in the JAX
         package. A swapped LM arrives unplaced: a `shard(sp=)` is left, and
         a pipeline placement is dropped (call `shard_pipeline()` again)."""
+        swapped = set()
         if coarse_ckpt is not None and self.coarse_path != Path(coarse_ckpt):
-            self._leave_sp()
             lm = _lm_from_file(coarse_ckpt, None, self.device)
             lm.chunk_size_s = self.coarse.chunk_size_s
             self.coarse, self.coarse_path = lm, Path(coarse_ckpt)
+            swapped.add("coarse")
         if c2f_ckpt is not None and self.c2f_path != Path(c2f_ckpt):
             lm = _lm_from_file(c2f_ckpt, None, self.device)
             lm.chunk_size_s = self.c2f.chunk_size_s if self.c2f is not None else 3
             self.c2f, self.c2f_path = lm, Path(c2f_ckpt)
-        self._forget_stale()
-        if self._pipeline and (self._placement(self.coarse) is None
-                               or self._placement(self.c2f) is None):
-            # a swapped model arrived unplaced: leave pipeline mode rather
-            # than run one stage off its slice; shard_pipeline() places again
-            self._drop_pipeline()
+            swapped.add("c2f")
+        place = self.placement
+        kept = {k: p for k, p in place.lms.items() if k not in swapped}
+        if len(kept) < len(place.lms) and (place.pipeline or place.sp > 1):
+            # a pipeline or sp placement that lost its stage is left rather
+            # than run one stage off its slice; shard() places again
+            self.placement = InterfacePlacement()
+        else:
+            self.placement = dataclasses.replace(place, lms=kept)
 
     @classmethod
     def from_modules(cls, codec_cfg: CodecConfig, codec_params: Mapping,
@@ -289,9 +286,9 @@ class Interface:
         from the bf16 path. The weights are quantized from the bf16-stored
         ones, as the JAX package does, and the bf16 kernels they replace are
         dropped. An LM already int8 is left as it is. Call it before
-        `shard()` or `shard_pipeline()`: the int8 LMs are unplaced (a
+        `shard()` or `shard_pipeline()`: it leaves the Interface unplaced (a
         `shard(sp=)` is left, a pipeline dropped)."""
-        self._leave_sp()
+        self.placement = InterfacePlacement()
         for name in ("coarse", "c2f"):
             lm = getattr(self, name)
             if lm is None or lm.config.quantization == "int8":
@@ -305,45 +302,24 @@ class Interface:
             lm.chunk_size_s = chunk_size_s
             setattr(self, name, lm)
             del state
-        self._forget_stale()
-        if self._pipeline:
-            # the new LMs are unplaced: call shard_pipeline() again after quantize()
-            self._drop_pipeline()
         return self
 
     # ---------- several devices ----------
 
-    def _placement(self, lm):
-        """The placement `lm` runs under, or None (unplaced, or swapped out
-        since it was placed)."""
-        return next((p for p in self._placements.values() if p.lm is lm), None)
+    def _placement(self, lm, whole_sequence: bool = False):
+        """The placement a MaskGIT call of `lm` runs under, or None. An sp
+        placement serves the chunk-free coarse path (`whole_sequence`)
+        alone, so under sp every windowed call runs unplaced; any other
+        placement serves the windows."""
+        if (self.placement.sp > 1) != whole_sequence:
+            return None
+        return self.placement.of(lm)
 
     def _stage_device(self, lm) -> torch.device:
-        """Where `lm`'s MaskGIT loop runs: its placement's first device."""
+        """Where a windowed MaskGIT call of `lm` runs: its placement's first
+        device."""
         place = self._placement(lm)
         return place.device if place is not None else self.device
-
-    def _forget_stale(self):
-        """Drop the placements of LMs that were swapped out (they hold the
-        old weights' shards)."""
-        self._placements = {k: p for k, p in self._placements.items()
-                            if p.lm is self.coarse or p.lm is self.c2f}
-
-    def _drop_pipeline(self):
-        """Unwind `shard_pipeline`: no placement, no mesh, the decode codec
-        back on the Interface's device, so a later data-parallel engine fails
-        until the Interface is placed again."""
-        self._placements = {}
-        self._pipeline = False
-        self._codec_decode = None
-        self._mesh = None
-
-    def _leave_sp(self):
-        """Restore the non-ring coarse LM of an earlier `shard(sp=)`."""
-        if self._coarse_windowed is not None:
-            self.coarse = self._coarse_windowed
-            self._coarse_windowed = None
-        self._sp_mesh = None
 
     def shard(self, mesh=None, tp: int = 1, sp: int = 1, devices=None) -> "Interface":
         """Place the LMs over several devices for inference (the JAX
@@ -355,8 +331,8 @@ class Interface:
           * "dp": data parallel; the LMs replicated over the mesh's dp axis,
             a batch's rows split over the dp groups where they divide;
           * "sp": sequence parallel (`sp > 1`, exclusive with tp and a
-            mesh); the coarse LM runs a ring-attention twin over an ("sp",)
-            mesh of `sp` devices and `coarse_vamp` defaults to the
+            mesh); the coarse LM's layers run as a `RingStack` over an
+            ("sp",) mesh of `sp` devices and `coarse_vamp` defaults to the
             chunk-free path (`_shard_sequence`).
         `mesh` is a ("dp", "tp") `parallel.Mesh`; without one,
         `make_mesh(tp=tp, devices=devices)` (every CUDA device by default; a
@@ -370,7 +346,6 @@ class Interface:
         gathered logits) and `VampEngine(data_parallel=True)` raises (an sp
         interface has no dp axis)."""
         from .parallel import make_mesh
-        from .parallel.placement import Placement
 
         if sp > 1:
             assert tp == 1 and mesh is None, "sp is exclusive with tp/dp"
@@ -381,25 +356,21 @@ class Interface:
             raise ValueError(f"the mesh starts on {mesh.device_list()[0]}, the Interface "
                              f"lives on {self.device}: the logits meet on the mesh's first "
                              "device, which must be the Interface's")
-        self._leave_sp()
-        self._mesh = mesh
-        self._pipeline = False
-        self._codec_decode = None
-        self._placements = {
+        self.placement = InterfacePlacement(lms={
             name: Placement(lm, mesh)
-            for name, lm in (("coarse", self.coarse), ("c2f", self.c2f)) if lm is not None}
+            for name, lm in (("coarse", self.coarse), ("c2f", self.c2f)) if lm is not None},
+            mesh=mesh)
         return self
 
     def _shard_sequence(self, sp: int, devices=None) -> "Interface":
         """Sequence parallel over an ("sp",) mesh of `sp` devices: the
-        coarse LM's ring twin (the same weights, `attention_impl="ring"`)
-        runs the chunk-free `coarse_vamp`; the windowed path
-        (`chunked=True`) keeps the non-ring LM, which a repeated `shard(sp=)`
-        keeps too. The c2f LM is not placed (its windows run on the
-        Interface's device). A dp/tp mesh of an earlier `shard()` is
-        dropped, so the data-parallel engine refuses this interface."""
+        coarse LM's placement (a `RingStack` over its layers) runs the
+        chunk-free `coarse_vamp`; the windowed calls (`chunked=True`,
+        `vamp_e2e`, `vamp_microbatched`) run the LM unplaced. The c2f LM is
+        not placed (its windows run on the Interface's device). A dp/tp mesh
+        of an earlier `shard()` is dropped, so the data-parallel engine
+        refuses this interface."""
         from .parallel.mesh import make_sp_mesh
-        from .parallel.placement import Placement
 
         mesh = make_sp_mesh(n_devices=sp, devices=devices)
         if mesh.size != sp:
@@ -407,18 +378,7 @@ class Interface:
         if mesh.device_list()[0] != self.device:
             raise ValueError(f"the sp mesh starts on {mesh.device_list()[0]}, the Interface "
                              f"lives on {self.device}")
-        windowed = self._coarse_windowed if self._coarse_windowed is not None else self.coarse
-        ring_cfg = dataclasses.replace(windowed.config, attention_impl="ring")
-        ring = VampNetLM(ring_cfg, device="meta")
-        ring.load_state_dict(windowed.state_dict(), strict=True, assign=True)
-        ring = ring.requires_grad_(False).eval()
-        ring.chunk_size_s = windowed.chunk_size_s
-        self._coarse_windowed, self.coarse = windowed, ring
-        self._sp_mesh = mesh
-        self._mesh = None
-        self._pipeline = False
-        self._codec_decode = None
-        self._placements = {"coarse": Placement(ring, mesh)}
+        self.placement = InterfacePlacement(lms={"coarse": Placement(self.coarse, mesh)}, sp=sp)
         return self
 
     def shard_pipeline(self, n_coarse_devices: Optional[int] = None, tp: int = 1,
@@ -435,7 +395,6 @@ class Interface:
         if self.c2f is None:
             raise ValueError("pipeline placement needs both stages")
         from .parallel import make_mesh
-        from .parallel.placement import Placement
 
         devices = [torch.device(d) for d in (
             devices if devices is not None else make_mesh().device_list())]
@@ -445,16 +404,14 @@ class Interface:
             n_coarse_devices = max(tp, min(n - tp, round(n * PIPELINE_COARSE_SHARE) // tp * tp))
         assert 0 < n_coarse_devices < n, (
             f"coarse slice {n_coarse_devices} must leave c2f >=1 of {n} devices")
-        self._leave_sp()
         mesh_a = make_mesh(devices=devices[:n_coarse_devices], tp=tp)
         mesh_b = make_mesh(devices=devices[n_coarse_devices:], tp=tp)
-        self._placements = {
-            "coarse": Placement(self.coarse, mesh_a), "c2f": Placement(self.c2f, mesh_b)}
-        dev_b = self._placements["c2f"].device
-        self._codec_decode = self.codec if dev_b == self.device else \
-            copy.deepcopy(self.codec).to(dev_b)
-        self._mesh = mesh_a  # the engine's dp rounding keys off the coarse slice
-        self._pipeline = True
+        c2f = Placement(self.c2f, mesh_b)
+        self.placement = InterfacePlacement(
+            lms={"coarse": Placement(self.coarse, mesh_a), "c2f": c2f},
+            mesh=mesh_a,  # the engine's dp rounding keys off the coarse slice
+            codec_decode=self.codec if c2f.device == self.device else
+            copy.deepcopy(self.codec).to(c2f.device))
         return self
 
     # ---------- time/token conversion ----------
@@ -483,8 +440,7 @@ class Interface:
         JAX places arrays itself). A placement (`shard`, `shard_pipeline`)
         is dropped: the LMs run whole on `device`. Returns the Interface."""
         device = resolve_device(device)
-        self._leave_sp()
-        self._drop_pipeline()
+        self.placement = InterfacePlacement()
         self.codec.to(device)
         for lm in (self.coarse, self.c2f):
             if lm is not None:
@@ -524,7 +480,8 @@ class Interface:
         whose every codebook is MASK is silenced, as in the JAX package."""
         z = self._tensor(z)
         mask_token = self.coarse.mask_token
-        codec = self._codec_decode if self._codec_decode is not None else self.codec
+        codec = self.placement.codec_decode
+        codec = self.codec if codec is None else codec
         z = z.to(next(codec.parameters()).device)
         audio = codec.decode_codes(torch.where(z == mask_token, 0, z))
         all_masked = (z == mask_token).all(dim=1)  # (b, T)
@@ -726,6 +683,7 @@ class Interface:
         sampler_impl: str = "auto",
         row_key_offset: Optional[int] = None,
         debug_callback: Optional[Callable] = None,
+        whole_sequence: bool = False,
     ) -> torch.Tensor:
         """MaskGIT over chunk rows with `lm`, the T5 bias built once for the
         chunk length. Randomness comes from `generator`, or from per-request
@@ -738,15 +696,16 @@ class Interface:
         (`generate`). `debug_callback` goes to `generate`
         (`sampling/debug.py`).
 
-        A placed LM (`shard`, `shard_pipeline`) runs its forward through its
-        placement and the loop on the placement's first device, `generator`
-        and `row_keys` there too; the codes come back to the device the
-        start tokens came from."""
+        A placed LM (`shard`, `shard_pipeline`) runs its forward through the
+        placement `_placement` gives the call (`whole_sequence`: the
+        chunk-free sp path) and the loop on the placement's first device,
+        `generator` and `row_keys` there too; the codes come back to the
+        device the start tokens came from."""
         if sampler_impl != "auto":
             raise NotImplementedError(
                 f"sampler_impl={sampler_impl!r}: the port has one sampler, the fused "
                 "kernel (sampler_impl='auto')")
-        place = self._placement(lm)
+        place = self._placement(lm, whole_sequence)
         dev = place.device if place is not None else self.device
         home = start_tokens.device
         start_tokens, mask = start_tokens.to(dev), mask.to(dev)
@@ -773,13 +732,11 @@ class Interface:
                                  f"divide batch {b_total}")
             row_keys = _expand_row_keys(row_keys, b_total // row_keys.shape[0],
                                         int(row_key_offset or 0))
-        ring = lm.config.attention_impl == "ring"
-        bias = None if ring else position_bias_from_params(lm, chunk_len)
+        # the ring stack builds its own bias blocks: no (t, t) bias there
+        bias = None if whole_sequence else position_bias_from_params(lm, chunk_len)
         cbs = self.codebooks[:n_cb]
         if place is not None:
             forward = lambda zm: place.forward_codes(zm, cbs, bias)  # noqa: E731
-        elif ring:
-            raise RuntimeError("a ring-attention LM runs only under shard(sp=)")
         else:
             forward = lambda zm: lm.forward_codes(zm, cbs, position_bias=bias)  # noqa: E731
         return generate(
@@ -809,15 +766,14 @@ class Interface:
         After `shard(sp=N)` the default is the chunk-free path
         (`chunked=False`, `_coarse_vamp_unchunked`): one ring-attention
         generate over the whole sequence, no windows and no seam pinning.
-        `chunked=True` forces the windows there (on the non-ring LM)."""
+        `chunked=True` forces the windows there (the LM unplaced)."""
         if chunked is None:
-            chunked = self._sp_mesh is None
+            chunked = self.placement.sp == 1
         if not chunked:
             return self._coarse_vamp_unchunked(z, mask, return_mask=return_mask, seed=seed,
                                                **kwargs)
         z, mask = self._tensor(z), self._tensor(mask)
-        # under shard(sp=) the windowed path runs the non-ring twin
-        lm = self._coarse_windowed if self._coarse_windowed is not None else self.coarse
+        lm = self.coarse
         n_coarse = lm.config.n_codebooks
         b, _, t = z.shape
         (pre, post), _ = self._chunk_fns(n_coarse, b, t, self.s2t(lm.chunk_size_s),
@@ -847,8 +803,8 @@ class Interface:
         requests on this grid, so that batched and solo requests run the
         same sequence length (a longer one changes the tokens: padded
         positions attend and count in the MaskGIT schedule)."""
-        assert self._sp_mesh is not None, "sp_pad_len requires shard(sp=N)"
-        n_sp = self._sp_mesh.shape["sp"]
+        n_sp = self.placement.sp
+        assert n_sp > 1, "sp_pad_len requires shard(sp=N)"
         mult = n_sp * (128 if t >= n_sp * 128 else 1)
         return ((t + mult - 1) // mult) * mult
 
@@ -860,12 +816,8 @@ class Interface:
         the ring-attention `RingStack` over the sp mesh (the (t, t) bias is
         never built); the logits meet on the mesh's first device, where K10
         samples them as on the unsharded path. Needs `shard(sp=N)`."""
-        assert self._sp_mesh is not None, (
+        assert self.placement.sp > 1, (
             "chunk-free coarse_vamp requires interface.shard(sp=N) first")
-        if kwargs.get("sampler_impl", "auto") != "auto":
-            raise NotImplementedError(
-                f"sampler_impl={kwargs['sampler_impl']!r}: under shard(sp=) the port's one "
-                "sampler (K10) runs on the gathered logits; leave sampler_impl at 'auto'")
         z, mask = self._tensor(z), self._tensor(mask)
         lm = self.coarse
         n_coarse = lm.config.n_codebooks
@@ -874,9 +826,9 @@ class Interface:
         zp = F.pad(z[:, :n_coarse], (0, pad))
         mp = F.pad(mask[:, :n_coarse], (0, pad), value=1)
         z_masked = torch.where(mp.bool(), lm.mask_token, zp)
-        generator, row_keys = self._rng(seed, self._stage_device(lm))
+        generator, row_keys = self._rng(seed)  # the sp mesh starts on the Interface's device
         c_vamp = self._run_generate(lm, z_masked, mp, generator, row_keys=row_keys,
-                                    **kwargs)[:, :, :t]
+                                    whole_sequence=True, **kwargs)[:, :, :t]
         if z.shape[1] > n_coarse:
             c_vamp = torch.cat([c_vamp, z[:, n_coarse:]], dim=1)
         if return_mask:
@@ -1044,7 +996,7 @@ class Interface:
         input is supported on that path (NaN has no PCM value)."""
         if transfer_dtype not in ("float32", "int16"):
             raise ValueError(f"transfer_dtype must be float32 or int16, got {transfer_dtype}")
-        assert not self._pipeline, (
+        assert not self.placement.pipeline, (
             "vamp_e2e is one request on one device and cannot span the two pipeline "
             "slices; with shard_pipeline use the staged path (encode/build_mask/vamp/"
             "decode) or serve.VampEngine")
@@ -1068,9 +1020,7 @@ class Interface:
         # ---- batch expand + coarse chunks as batch rows ----
         z = codes.expand((batch_size,) + codes.shape[1:]).contiguous()
         m = m.expand((batch_size,) + m.shape[1:]).contiguous()
-        # under shard(sp=) the chunk rows run the non-ring twin
-        coarse = self._coarse_windowed if self._coarse_windowed is not None else self.coarse
-        c2f = self.c2f
+        coarse, c2f = self.coarse, self.c2f
         n_coarse = coarse.config.n_codebooks
         sampling = dict(temperature=temperature, mask_temperature=mask_temperature,
                         typical_mass=typical_mass, typical_min_tokens=typical_min_tokens,

@@ -1,5 +1,6 @@
-"""One LM laid out over a mesh for inference: the forward that
-`Interface.shard` and `Interface.shard_pipeline` give the MaskGIT loop.
+"""One LM laid out over a mesh for inference (`Placement`): the forward
+that `Interface.shard` and `Interface.shard_pipeline` give the MaskGIT loop;
+and an Interface's whole placement as one value (`InterfacePlacement`).
 
   * A ("dp", "tp") mesh: each row of the mesh is a dp group. The group's
     first device holds a replica of the LM (the LM itself on its own
@@ -23,7 +24,8 @@ card runs each device's launches as they arrive, so the groups overlap.
 from __future__ import annotations
 
 import copy
-from typing import Optional
+import dataclasses
+from typing import Mapping, Optional
 
 import torch
 
@@ -97,3 +99,31 @@ class Placement:
                                        self._on(position_bias, dev), stack=stack)
             outs.append(logits.to(self.device))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+@dataclasses.dataclass(frozen=True)
+class InterfacePlacement:
+    """Where an Interface's models run (`Interface.placement`). `shard`,
+    `shard(sp=)` and `shard_pipeline` each build a whole one; the default is
+    unplaced, every model whole on the Interface's device.
+
+    lms: the LMs' placements by name ("coarse", "c2f").
+    mesh: the ("dp", "tp") mesh a data-parallel engine rounds its rows by
+      (the coarse slice's under a pipeline); None unplaced and under sp.
+    sp: the sequence-parallel size (1: none). Under sp only the coarse LM is
+      placed, and its placement serves the chunk-free path alone.
+    codec_decode: a pipeline's decode codec, on the c2f slice's first device;
+      None off a pipeline."""
+
+    lms: Mapping[str, Placement] = dataclasses.field(default_factory=dict)
+    mesh: Optional[Mesh] = None
+    sp: int = 1
+    codec_decode: Optional[torch.nn.Module] = None
+
+    @property
+    def pipeline(self) -> bool:
+        return self.codec_decode is not None
+
+    def of(self, lm: VampNetLM) -> Optional[Placement]:
+        """The placement of `lm`, or None."""
+        return next((p for p in self.lms.values() if p.lm is lm), None)

@@ -119,7 +119,7 @@ class VampEngine:
         self.bucket_tokens = bucket_tokens or (
             interface.s2t(interface.coarse.chunk_size_s) if interface is not None else None)
         self.data_parallel = data_parallel
-        mesh = getattr(interface, "_mesh", None)
+        mesh = interface.placement.mesh if interface is not None else None
         if data_parallel:
             assert mesh is not None, "data_parallel serving requires interface.shard(mesh) first"
         self.dp = mesh.shape.get("dp", 1) if data_parallel else 1
@@ -218,7 +218,7 @@ class VampEngine:
         )
 
     def _bucket_len(self, t: int) -> int:
-        if getattr(self.interface, "_sp_mesh", None) is not None:
+        if self.interface.placement.sp > 1:
             return self.interface.sp_pad_len(t)
         b = self.bucket_tokens
         return ((t + b - 1) // b) * b
